@@ -1,0 +1,12 @@
+"""GraphDot-TPU ported to PyTorch and CUDA for NVIDIA Hopper.
+
+A second package beside :mod:`graphdot_tpu`, which stays the reference.
+The host layer that loads no JAX (graphs, padded batches, synthetic data,
+hyperparameter trees) is imported from :mod:`graphdot_tpu`; everything that
+computes on tensors is torch, and the product-graph PCG solve runs in a
+hand-written CUDA kernel (``csrc/pcg_resident.cu``) on the card.
+"""
+from .graph import Graph
+
+__version__ = '0.3.0'
+__all__ = ['Graph']

@@ -1,0 +1,53 @@
+"""Backend selection; counterpart of
+``graphdot_tpu/kernel/marginalized/_backend.py``.
+
+Three ways to solve the product-graph systems:
+
+- ``'cuda'`` (what ``'auto'`` picks on a CUDA device): the edge-factored
+  operands go to the hand-written resident PCG kernel
+  (``ops/pcg.py::pcg_resident``), one CTA per pair, with all CG state in
+  shared memory.
+- ``'edge'`` (what ``'auto'`` picks on the CPU): the same edge-factored
+  matvec in plain torch (gathers and index-adds over the edge lists) inside
+  a batched PCG.
+- ``'dense'``: the dense product-graph coupling tensor, one contraction per
+  CG step, O(n1^2 n2^2); for validation and tiny graphs.
+
+A mode that fails raises; no mode stands in for another.
+"""
+import torch
+
+
+class Backend:
+    """Computing engine that solves the marginalized graph kernel's
+    generalized Laplacian equation."""
+
+    MODES = ('cuda', 'edge', 'dense')
+
+    def __init__(self, mode='edge'):
+        if mode not in self.MODES:
+            raise ValueError(f'Unknown backend mode {mode!r}')
+        self.mode = mode
+
+
+def backend_factory(backend, device):
+    """Resolve ``backend`` ('auto', a mode name or a Backend) for tensors
+    on ``device`` (a torch.device)."""
+    if isinstance(backend, Backend):
+        return backend
+    if backend == 'auto':
+        return Backend('cuda' if device.type == 'cuda' else 'edge')
+    if backend in Backend.MODES:
+        return Backend(backend)
+    raise ValueError(f'Unknown backend {backend!r}')
+
+
+def resolve_device(device):
+    """A torch.device for ``device``; raises for a CUDA device when there
+    is no usable card, instead of running elsewhere."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'device={str(device)!r} was asked for, but torch finds no CUDA '
+            'device')
+    return device

@@ -1,0 +1,129 @@
+"""The CUDA resident-PCG kernel on the card, against its plain twin.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` (a CUDA kernel has no
+interpret mode): they carry the ``cuda`` marker and skip without a card.
+This file imports no JAX, so on a machine without it run
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+
+Tolerance: max |x_kernel - x_twin| <= 1e-5 max |x| (both float32 CG to
+ftol * N; the kernel sums in a fixed order, the twin with index_add_).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip('torch')
+
+from graphdot_tpu_torch.kernel import (  # noqa: E402
+    MarginalizedGraphKernel, Normalization)
+from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
+    mlgk_setup)
+from graphdot_tpu_torch.microkernel import (  # noqa: E402
+    KroneckerDelta, SquareExponential, TensorProduct)
+from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
+    pcg_resident, pcg_resident_reference)
+from graphdot_tpu_torch.testing import random_molecule_set  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU: the CUDA kernel runs only there')
+    return torch.device('cuda')
+
+
+def _kernel(device, backend='auto'):
+    return MarginalizedGraphKernel(
+        TensorProduct(element=KroneckerDelta(0.2)),
+        TensorProduct(length=SquareExponential(0.3)), q=0.05,
+        device=device, backend=backend)
+
+
+def _systems(device, atoms1, atoms2):
+    """Operands for all pairs between 5 graphs of ``atoms1`` atoms and 4
+    of ``atoms2`` atoms (rectangular when the ranges differ)."""
+    kernel = _kernel(device)
+    _, bd1, _ = kernel._prepare_batch(random_molecule_set(3, 5, atoms1))
+    _, bd2, _ = kernel._prepare_batch(random_molecule_set(4, 4, atoms2))
+    i, j = np.indices((5, 4))
+    s = mlgk_setup(kernel._theta_vector(),
+                   kernel._operands(bd1, bd2,
+                                    torch.as_tensor(i.ravel(), device=device),
+                                    torch.as_tensor(j.ravel(), device=device)),
+                   knode=kernel.node_kernel, kedge=kernel.edge_kernel,
+                   n_p_theta=1, mode='cuda')
+    n_pad = max(bd1['node_mask'].shape[1], bd2['node_mask'].shape[1])
+    return (s['T'], s['esrc_1'], s['edst_1'], s['esrc_2'], s['edst_2'],
+            s['diag'].contiguous(), s['precond'].contiguous(),
+            s['b'].contiguous(), s['tol'], kernel.maxiter(n_pad))
+
+
+@pytest.mark.parametrize('atoms1,atoms2', [
+    ((9, 24), (9, 24)),     # the slice's molecules
+    ((5, 9), (20, 24)),     # rectangular: n1 != n2, M1 != M2
+    ((30, 45), (30, 45)),   # over 48 KB of shared memory per pair
+])
+def test_kernel_matches_twin(card, atoms1, atoms2):
+    args = _systems(card, atoms1, atoms2)
+    before = pcg_resident.launches
+    x, iters = pcg_resident(*args)
+    torch.cuda.synchronize()
+    assert pcg_resident.launches == before + 1
+    x_ref, iters_ref = pcg_resident_reference(*args)
+    assert bool(torch.isfinite(x).all())
+    err = float((x - x_ref).abs().max())
+    assert err <= 1e-5 * float(x_ref.abs().max())
+    assert int((iters - iters_ref).abs().max()) <= 1
+    assert int(iters.max()) < args[-1]
+
+
+def test_kernel_stop_rules(card):
+    args = list(_systems(card, (9, 24), (9, 24)))
+    x, iters = pcg_resident(*args[:-1], 0)
+    assert not x.any() and not iters.any()
+    x, iters = pcg_resident(*args[:-1], 2)
+    assert bool(torch.all(iters == 2))
+    x_ref, _ = pcg_resident_reference(*args[:-1], 2)
+    assert float((x - x_ref).abs().max()) <= 1e-5 * float(x_ref.abs().max())
+    args[7] = torch.zeros_like(args[7])     # b = 0
+    x, iters = pcg_resident(*args)
+    assert not x.any() and not iters.any()
+    args[7] = torch.ones_like(args[7])
+    args[6] = torch.zeros_like(args[6])     # precond = 0: rz == 0
+    x, iters = pcg_resident(*args)
+    torch.cuda.synchronize()
+    assert not x.any() and bool(torch.all(iters == 1))
+
+
+def test_no_pairs_launches_nothing(card):
+    args = [a[:0] for a in _systems(card, (9, 24), (9, 24))[:-1]]
+    before = pcg_resident.launches
+    x, iters = pcg_resident(*args, 10)
+    assert x.shape[0] == 0 and iters.shape == (0,)
+    assert pcg_resident.launches == before
+
+
+def test_pair_beyond_shared_memory_raises(card):
+    P, M, N = 1, 256, 24
+    T = torch.zeros(P, M, M, device=card)
+    e = torch.zeros(P, M, dtype=torch.int32, device=card)
+    d = torch.ones(P, N, N, device=card)
+    with pytest.raises(ValueError, match='shared memory'):
+        pcg_resident(T, e, e, e, e, d, d, d, torch.ones(P, device=card), 8)
+
+
+@pytest.mark.parametrize('nodal', [False, True])
+def test_gram_cuda_matches_edge(card, nodal):
+    graphs = random_molecule_set(5, 12, n_atoms_range=(9, 24))
+    before = pcg_resident.launches
+    R = _kernel(card)(graphs, nodal=nodal)
+    assert pcg_resident.launches == before + 1
+    R_edge = _kernel(card, 'edge')(graphs, nodal=nodal)
+    assert pcg_resident.launches == before + 1
+    np.testing.assert_allclose(R, R_edge, rtol=1e-5, atol=1e-7)
+    if not nodal:
+        K = Normalization(_kernel(card))(graphs)
+        K_edge = Normalization(_kernel(card, 'edge'))(graphs)
+        np.testing.assert_allclose(K, K_edge, rtol=0, atol=1e-6)
