@@ -3,8 +3,9 @@
 A second package beside :mod:`graphdot_tpu`, which stays the reference.
 The host layer that loads no JAX (graphs, padded batches, synthetic data,
 hyperparameter trees) is imported from :mod:`graphdot_tpu`; everything that
-computes on tensors is torch, and the product-graph PCG solve runs in a
-hand-written CUDA kernel (``csrc/pcg_resident.cu``) on the card.
+computes on tensors is torch, and the product-graph PCG solve runs in
+hand-written CUDA kernels on the card: ``csrc/pcg_resident.cu`` for pairs
+that fit a block's shared memory, ``csrc/pcg_stream.cu`` for larger ones.
 """
 from .graph import Graph
 

@@ -19,8 +19,14 @@ from graphdot_tpu.util.iterable import fold_like, flatten
 from graphdot_tpu.util.pretty_tuple import pretty_tuple
 from ...graph import Graph, batch_graphs
 from ._backend import backend_factory, resolve_device
-from ._solver import mlgk_solve, weight_by_p
+from ._solver import cuda_solver, mlgk_solve, weight_by_p
+from ...ops.pcg import pcg_stream
 from .starting_probability import StartingProbability, Uniform, Adhoc
+
+
+#: working-set budget, in floats, of a chunk of pairs that runs in
+#: ``pcg_stream``
+STREAM_CHUNK_FLOATS = 1 << 30
 
 
 def _tree_map(f, tree):
@@ -217,7 +223,9 @@ class MarginalizedGraphKernel:
 
     def _chunk_size(self, n_pad, m_pad):
         """Job-chunk size bounded by the solver's working-set memory
-        (~256 MB of float32 per chunk)."""
+        (~256 MB of float32 per chunk; ~4 GB for pairs that run in
+        ``pcg_stream``, which solves one pair per SM, so that a chunk keeps
+        more of the card busy)."""
         budget = 1 << 26  # floats
         if self.backend.mode == 'dense':
             per_pair = max(n_pad ** 4, 1)
@@ -225,6 +233,9 @@ class MarginalizedGraphKernel:
             per_pair = max(
                 m_pad * m_pad + 4 * m_pad * n_pad + 8 * n_pad * n_pad, 1
             )
+            if self.backend.mode == 'cuda' and cuda_solver(
+                    m_pad, m_pad, n_pad, n_pad, self.device) is pcg_stream:
+                budget = STREAM_CHUNK_FLOATS
         return int(np.clip(budget // per_pair, 1, 4096))
 
     def _run_chunks(self, theta, bd1, bd2, pf1, pf2, i_jobs, j_jobs, chunk,

@@ -9,13 +9,14 @@ and the kernel value ``K = sum_ij p1_i p2_j x_ij``.
 The off-diagonal matvec is either the dense coupling tensor
 (``mode='dense'``) or the edge-factored form with per-pair edge-coupling
 matrix ``T[e1,e2] = w1 w2 k_edge(e1,e2)`` over the directed edge lists
-(``'edge'`` in plain torch, ``'cuda'`` in the resident PCG kernel). The
-batched PCG loop itself lives in :mod:`graphdot_tpu_torch.ops.pcg`, where
-the kernel's plain twin shares it.
+(``'edge'`` in plain torch, ``'cuda'`` in the CUDA PCG kernels, routed
+by :func:`cuda_solver`). The batched PCG loop itself lives in
+:mod:`graphdot_tpu_torch.ops.pcg`, where the kernels' plain twins share it.
 """
 import torch
 
-from ...ops.pcg import gather_offdiag, pcg, pcg_resident
+from ...ops.pcg import (gather_offdiag, pcg, pcg_resident, pcg_stream,
+                        resident_smem)
 
 # ---------------------------------------------------------------------------
 # feature pytree helpers
@@ -87,6 +88,22 @@ def _apply_on_features(kernel, theta, X, Y):
 # ---------------------------------------------------------------------------
 # the batched MLGK solve
 # ---------------------------------------------------------------------------
+
+
+def cuda_solver(M1, M2, N1, N2, device):
+    """The kernel that mode ``'cuda'`` solves a chunk of pairs of these
+    shapes with: :func:`pcg_resident` when one pair fits the shared memory
+    a block can get on the CUDA ``device``, else :func:`pcg_stream`.
+
+    This is the counterpart of ``graphdot_tpu/ops/pallas_pcg.py:379-388``
+    with the TPU's 48 MB VMEM limit replaced by the card's limit per
+    block; the sum-of-Kronecker branch of the JAX package is not ported.
+    On the CPU both wrappers run the same plain function, and
+    :func:`pcg_resident` is returned."""
+    if torch.device(device).type != 'cuda':
+        return pcg_resident
+    smem, limit = resident_smem(M1, M2, N1, N2, torch.device(device))
+    return pcg_resident if smem <= limit else pcg_stream
 
 
 def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode):
@@ -195,8 +212,10 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     N = n1 * n2
 
     if mode == 'cuda':
-        x, _ = pcg_resident(
-            s['T'], s['esrc_1'], s['edst_1'], s['esrc_2'], s['edst_2'],
+        T = s['T']
+        solver = cuda_solver(T.shape[1], T.shape[2], n1, n2, T.device)
+        x, _ = solver(
+            T, s['esrc_1'], s['edst_1'], s['esrc_2'], s['edst_2'],
             diag.contiguous(), s['precond'].contiguous(),
             s['b'].contiguous(), s['tol'].contiguous(), maxiter)
     else:

@@ -4,7 +4,8 @@ loads them with ``ctypes``.
 Each source compiles on its own into a shared library with a plain C
 interface, under ``build/graphdot_tpu_torch/`` at the root of the checkout;
 the file name carries a hash of the source and the flags, so an edited
-source builds anew and an unchanged one is reused. A failed build raises.
+source builds anew and an unchanged one is reused. :func:`build` starts
+one ``nvcc`` a source, all at once. A failed build raises.
 """
 import ctypes
 import hashlib
@@ -22,7 +23,8 @@ NVCC_FLAGS = (
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 )
 
-#: source name -> (ctypes.CDLL, {'seconds': build time, 'log': nvcc output})
+#: source name -> (ctypes.CDLL, {'seconds': build wall time until it was
+#: collected, 'log': nvcc output})
 _LOADED = {}
 
 
@@ -43,35 +45,59 @@ def nvcc_path():
         'kernels of graphdot_tpu_torch are built from source at first use')
 
 
-def load(name):
-    """Build (if needed) and load ``csrc/<name>.cu``; returns the CDLL."""
-    if name in _LOADED:
-        return _LOADED[name][0]
+def _target(name):
+    """(source path, nvcc, library path) of ``csrc/<name>.cu``."""
     src = _CSRC / f'{name}.cu'
     nvcc = nvcc_path()
     key = hashlib.sha256(
         src.read_bytes() + '\0'.join((nvcc,) + NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f'{name}-{key}.so'
-    info = {'seconds': 0.0, 'log': ''}
-    if not lib_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f'.{os.getpid()}.tmp')
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(src)],
-            capture_output=True, text=True)
-        info['seconds'] = time.perf_counter() - t0
-        info['log'] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f'nvcc failed to build {src} (exit {proc.returncode}):\n'
-                f'{info["log"]}')
-        os.replace(tmp, lib_path)   # atomic: concurrent builds agree
-    lib = ctypes.CDLL(str(lib_path))
-    _LOADED[name] = (lib, info)
-    return lib
+    return src, nvcc, _BUILD_DIR / f'{name}-{key}.so'
+
+
+def build(*names):
+    """Build (where needed) and load ``csrc/<name>.cu`` for every name, one
+    ``nvcc`` process a source, all started together. A failed build stops
+    the others and raises."""
+    started = {}
+    try:
+        for name in names:
+            if name in _LOADED or name in started:
+                continue
+            src, nvcc, lib_path = _target(name)
+            if lib_path.exists():
+                started[name] = (None, lib_path, None, 0.0)
+                continue
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f'.{os.getpid()}.tmp')
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            started[name] = (proc, lib_path, tmp, time.perf_counter())
+        for name, (proc, lib_path, tmp, t0) in started.items():
+            info = {'seconds': 0.0, 'log': ''}
+            if proc is not None:
+                log, _ = proc.communicate()
+                info = {'seconds': time.perf_counter() - t0, 'log': log}
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(
+                        f'nvcc failed to build {_CSRC / name}.cu (exit '
+                        f'{proc.returncode}):\n{log}')
+                os.replace(tmp, lib_path)   # atomic: concurrent builds agree
+            _LOADED[name] = (ctypes.CDLL(str(lib_path)), info)
+    finally:
+        for proc, _, tmp, _ in started.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+                tmp.unlink(missing_ok=True)
+
+
+def load(name):
+    """Build (if needed) and load ``csrc/<name>.cu``; returns the CDLL."""
+    build(name)
+    return _LOADED[name][0]
 
 
 def build_info(name):

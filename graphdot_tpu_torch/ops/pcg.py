@@ -1,9 +1,10 @@
-"""Resident product-graph PCG: the CUDA kernel's wrapper and its plain
-PyTorch twin.
+"""Product-graph PCG: the CUDA kernels' wrappers and their plain PyTorch
+twins.
 
-Counterpart of ``graphdot_tpu/ops/pallas_pcg.py`` (``pallas_pcg``, the
-``k == 1`` branch of ``pallas_pcg_solver`` and ``_cg_solve_values``). Both
-functions here solve, for every pair p of a batch,
+Counterpart of ``graphdot_tpu/ops/pallas_pcg.py``: ``pallas_pcg`` (the
+``k == 1`` branch of ``pallas_pcg_solver`` and ``_cg_solve_values``) and
+``pallas_pcg_stream`` (``_stream_solver``). Every function here solves,
+for every pair p of a batch,
 
     [diag o Y - S1^T (T o (D1 Y D2^T)) S2] x = b
 
@@ -18,6 +19,12 @@ lists (``esrc``/``edst`` indices), not as one-hot matrices.
 - :func:`pcg_resident_reference` is the same function in plain torch:
   batched over pairs with done masks, the matvec by ``index_select`` and
   ``index_add_`` over the same edge lists.
+- :func:`pcg_stream` launches ``csrc/pcg_stream.cu`` on CUDA tensors (one
+  CTA per pair, T streamed from device memory in tiles, the CG vectors in
+  a device workspace), for pairs beyond a block's shared memory. Given CPU
+  tensors it runs :func:`pcg_stream_reference`.
+- :func:`pcg_stream_reference` is its plain twin, the same function as
+  :func:`pcg_resident_reference`.
 """
 import ctypes
 import functools
@@ -146,10 +153,10 @@ def _check(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter):
     return P, M1, M2, N1, N2
 
 
-def pcg_resident_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
-                           tol, maxiter):
-    """Plain-torch twin of :func:`pcg_resident`, with the same arguments
-    and results: ``(x [P,N1,N2] f32, iters [P] int32)``."""
+def _plain_pcg(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+               maxiter):
+    """The solve of both kernels in plain torch: :func:`pcg` over the
+    matvec of :func:`gather_offdiag`."""
     P, M1, M2, N1, N2 = _check(T, esrc1, edst1, esrc2, edst2, diag,
                                precond, b, tol, maxiter)
     N = N1 * N2
@@ -163,6 +170,28 @@ def pcg_resident_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
     x, iters = pcg(matvec, b.reshape(P, N), precond.reshape(P, N), tol,
                    maxiter, return_iters=True)
     return x.view(P, N1, N2), iters
+
+
+def pcg_resident_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
+                           tol, maxiter):
+    """Plain-torch twin of :func:`pcg_resident`, with the same arguments
+    and results: ``(x [P,N1,N2] f32, iters [P] int32)``."""
+    return _plain_pcg(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+                      maxiter)
+
+
+def pcg_stream_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
+                         tol, maxiter):
+    """Plain-torch twin of :func:`pcg_stream`, with the same arguments and
+    results: ``(x [P,N1,N2] f32, iters [P] int32)``.
+
+    It computes the same function as :func:`pcg_resident_reference`, by
+    the same code. Its memory grows with the chunk: each CG step of
+    :func:`gather_offdiag` builds intermediates of T's size, [P, M2, M1]
+    floats (55.8 MB a pair at protein contact-map shapes, M = 3736), so
+    give it a chunk of a few pairs at that size."""
+    return _plain_pcg(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+                      maxiter)
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,10 +211,48 @@ def _library():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _stream_library():
+    """The built streaming-kernel library, with its C signatures."""
+    lib = _build.load('pcg_stream')
+    ptr, cint, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.graphdot_pcg_stream.argtypes = [ptr] * 12 + [cint] * 7 + [ptr]
+    lib.graphdot_pcg_stream.restype = cint
+    lib.graphdot_pcg_stream_smem_bytes.argtypes = [cint] * 5
+    lib.graphdot_pcg_stream_smem_bytes.restype = size
+    lib.graphdot_pcg_stream_workspace_bytes.argtypes = [cint] * 5
+    lib.graphdot_pcg_stream_workspace_bytes.restype = size
+    lib.graphdot_cuda_error_string.argtypes = [cint]
+    lib.graphdot_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _raise_on(lib, err, what):
     if err:
         msg = lib.graphdot_cuda_error_string(err).decode()
         raise RuntimeError(f'{what} failed: CUDA error {err} ({msg})')
+
+
+def _device_index(device):
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def _smem_limit(device):
+    """Bytes of shared memory a block can opt into on the CUDA device."""
+    lib = _library()
+    limit = ctypes.c_int(0)
+    _raise_on(lib, lib.graphdot_pcg_resident_smem_limit(
+        _device_index(device), ctypes.byref(limit)),
+        'cudaDeviceGetAttribute')
+    return limit.value
+
+
+def resident_smem(M1, M2, N1, N2, device):
+    """(bytes of shared memory :func:`pcg_resident` needs for one pair of
+    these shapes, bytes a block can opt into on the CUDA ``device``)."""
+    return (_library().graphdot_pcg_resident_smem_bytes(M1, M2, N1, N2),
+            _smem_limit(device))
 
 
 def pcg_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
@@ -219,17 +286,13 @@ def pcg_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
     if T.device.type != 'cuda':
         raise ValueError(f'pcg_resident runs on CUDA or CPU, not {T.device}')
     lib = _library()
-    device = T.device.index if T.device.index is not None else \
-        torch.cuda.current_device()
-    smem = lib.graphdot_pcg_resident_smem_bytes(M1, M2, N1, N2)
-    limit = ctypes.c_int(0)
-    _raise_on(lib, lib.graphdot_pcg_resident_smem_limit(
-        device, ctypes.byref(limit)), 'cudaDeviceGetAttribute')
-    if smem > limit.value:
+    device = _device_index(T.device)
+    smem, limit = resident_smem(M1, M2, N1, N2, T.device)
+    if smem > limit:
         raise ValueError(
             f'a pair with M1={M1}, M2={M2}, N1={N1}, N2={N2} needs {smem} '
-            f'bytes of shared memory; a block can have {limit.value}. '
-            'Such pairs need the streaming kernel, which is not ported yet.')
+            f'bytes of shared memory; a block can have {limit}. '
+            'Such pairs run in pcg_stream.')
     x = torch.empty_like(b)
     iters = torch.empty(P, dtype=torch.int32, device=T.device)
     if P == 0:
@@ -249,3 +312,63 @@ def pcg_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
 
 #: kernel launches made by :func:`pcg_resident` in this process
 pcg_resident.launches = 0
+
+
+def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+               maxiter):
+    """Solve a batch of product-graph systems with the streaming CUDA PCG.
+
+    Arguments and results as :func:`pcg_resident`. The kernel keeps T in
+    device memory and streams it through shared memory in tiles once per
+    CG step, so a pair of any edge count runs; the wrapper allocates the
+    workspace (a copy of T sorted by edge source on both sides, the CG
+    vectors and the sorted edge lists, about T's size again) with
+    ``torch.empty``.
+
+    CUDA tensors launch the kernel on the current stream and add one to
+    ``pcg_stream.launches``; CPU tensors run :func:`pcg_stream_reference`.
+    Raises when no tile shape fits a block's shared memory (side 2 beyond
+    about 9,800 nodes), for more than 65535 pairs (the grid's second
+    dimension), or when a launch fails.
+    """
+    P, M1, M2, N1, N2 = _check(T, esrc1, edst1, esrc2, edst2, diag,
+                               precond, b, tol, maxiter)
+    if T.device.type == 'cpu':
+        return pcg_stream_reference(T, esrc1, edst1, esrc2, edst2, diag,
+                                    precond, b, tol, maxiter)
+    if T.device.type != 'cuda':
+        raise ValueError(f'pcg_stream runs on CUDA or CPU, not {T.device}')
+    if P > 65535:
+        raise ValueError(f'pcg_stream takes at most 65535 pairs a call, '
+                         f'got {P}')
+    lib = _stream_library()
+    device = _device_index(T.device)
+    limit = _smem_limit(T.device)
+    if not lib.graphdot_pcg_stream_smem_bytes(M1, M2, N1, N2, limit):
+        raise ValueError(
+            f'no tile of the streaming kernel fits {limit} bytes of shared '
+            f'memory for a pair with M1={M1}, M2={M2}, N1={N1}, N2={N2}')
+    x = torch.empty_like(b)
+    iters = torch.empty(P, dtype=torch.int32, device=T.device)
+    if P == 0:
+        return x, iters
+    # freed when this returns: the caching allocator hands it out again
+    # only to work queued after the launch on the same stream
+    work = torch.empty(
+        lib.graphdot_pcg_stream_workspace_bytes(P, M1, M2, N1, N2),
+        dtype=torch.uint8, device=T.device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.graphdot_pcg_stream(
+            T.data_ptr(), esrc1.data_ptr(), edst1.data_ptr(),
+            esrc2.data_ptr(), edst2.data_ptr(), diag.data_ptr(),
+            precond.data_ptr(), b.data_ptr(), tol.data_ptr(),
+            x.data_ptr(), iters.data_ptr(), work.data_ptr(),
+            P, M1, M2, N1, N2, maxiter, limit, stream)
+    _raise_on(lib, err, 'pcg_stream launch')
+    pcg_stream.launches += 1
+    return x, iters
+
+
+#: kernel launches made by :func:`pcg_stream` in this process
+pcg_stream.launches = 0

@@ -1,4 +1,4 @@
-"""The CUDA resident-PCG kernel on the card, against its plain twin.
+"""The CUDA PCG kernels on the card, against their plain twins.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` (a CUDA kernel has no
 interpret mode): they carry the ``cuda`` marker and skip without a card.
@@ -7,7 +7,7 @@ This file imports no JAX, so on a machine without it run
     python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerance: max |x_kernel - x_twin| <= 1e-5 max |x| (both float32 CG to
-ftol * N; the kernel sums in a fixed order, the twin with index_add_).
+ftol * N; the kernels sum in a fixed order, the twins with index_add_).
 """
 import numpy as np
 import pytest
@@ -17,12 +17,13 @@ torch = pytest.importorskip('torch')
 from graphdot_tpu_torch.kernel import (  # noqa: E402
     MarginalizedGraphKernel, Normalization)
 from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
-    mlgk_setup)
+    cuda_solver, mlgk_setup)
 from graphdot_tpu_torch.microkernel import (  # noqa: E402
     KroneckerDelta, SquareExponential, TensorProduct)
 from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
-    pcg_resident, pcg_resident_reference)
-from graphdot_tpu_torch.testing import random_molecule_set  # noqa: E402
+    pcg_resident, pcg_resident_reference, pcg_stream, pcg_stream_reference)
+from graphdot_tpu_torch.testing import (  # noqa: E402
+    protein_niche_set, random_molecule_set)
 
 pytestmark = pytest.mark.cuda
 
@@ -110,7 +111,7 @@ def test_pair_beyond_shared_memory_raises(card):
     T = torch.zeros(P, M, M, device=card)
     e = torch.zeros(P, M, dtype=torch.int32, device=card)
     d = torch.ones(P, N, N, device=card)
-    with pytest.raises(ValueError, match='shared memory'):
+    with pytest.raises(ValueError, match='shared memory.*pcg_stream'):
         pcg_resident(T, e, e, e, e, d, d, d, torch.ones(P, device=card), 8)
 
 
@@ -127,3 +128,84 @@ def test_gram_cuda_matches_edge(card, nodal):
         K = Normalization(_kernel(card))(graphs)
         K_edge = Normalization(_kernel(card, 'edge'))(graphs)
         np.testing.assert_allclose(K, K_edge, rtol=0, atol=1e-6)
+
+
+def _niche_systems(device):
+    """Operands for the 3 pairs of 2 categorical-edge proteins of 83-88
+    residues (n = 88, m = 1144: beyond a block's shared memory)."""
+    kernel = MarginalizedGraphKernel(
+        TensorProduct(element=KroneckerDelta(0.2)),
+        TensorProduct(length=SquareExponential(3.0),
+                      ctype=KroneckerDelta(0.3)),
+        q=0.05, device=device)
+    batch, bd, _ = kernel._prepare_batch(protein_niche_set(13, 2, (60, 90)))
+    i, j = np.triu_indices(2)
+    s = mlgk_setup(kernel._theta_vector(),
+                   kernel._operands(bd, bd,
+                                    torch.as_tensor(i, device=device),
+                                    torch.as_tensor(j, device=device)),
+                   knode=kernel.node_kernel, kedge=kernel.edge_kernel,
+                   n_p_theta=1, mode='cuda')
+    return (s['T'], s['esrc_1'], s['edst_1'], s['esrc_2'], s['edst_2'],
+            s['diag'].contiguous(), s['precond'].contiguous(),
+            s['b'].contiguous(), s['tol'],
+            kernel.maxiter(batch.node_mask.shape[1]))
+
+
+@pytest.mark.parametrize('shape', ['molecules', 'proteins'])
+def test_stream_kernel_matches_twin(card, shape):
+    args = (_systems(card, (5, 9), (20, 24)) if shape == 'molecules'
+            else _niche_systems(card))
+    before = pcg_stream.launches
+    x, iters = pcg_stream(*args)
+    torch.cuda.synchronize()
+    assert pcg_stream.launches == before + 1
+    x_ref, iters_ref = pcg_stream_reference(*args)
+    assert bool(torch.isfinite(x).all())
+    err = float((x - x_ref).abs().max())
+    assert err <= 1e-5 * float(x_ref.abs().max())
+    assert int((iters - iters_ref).abs().max()) <= 1
+    assert 0 < int(iters.min()) and int(iters.max()) < args[-1]
+
+
+def test_stream_kernel_stop_rules(card):
+    args = list(_niche_systems(card))
+    x, iters = pcg_stream(*args[:-1], 0)
+    assert not x.any() and not iters.any()
+    tol = args[8]
+    args[8] = torch.zeros_like(tol)         # tol = 0: runs maxiter steps
+    x, iters = pcg_stream(*args[:-1], 3)
+    assert bool(torch.all(iters == 3))
+    x_ref, _ = pcg_stream_reference(*args[:-1], 3)
+    assert float((x - x_ref).abs().max()) <= 1e-5 * float(x_ref.abs().max())
+    args[8] = tol
+    args[7] = torch.zeros_like(args[7])     # b = 0: stops before a step
+    x, iters = pcg_stream(*args)
+    torch.cuda.synchronize()
+    assert not x.any() and not iters.any()
+
+
+def test_stream_no_pairs_launches_nothing(card):
+    args = [a[:0] for a in _niche_systems(card)[:-1]]
+    before = pcg_stream.launches
+    x, iters = pcg_stream(*args, 10)
+    assert x.shape[0] == 0 and iters.shape == (0,)
+    assert pcg_stream.launches == before
+
+
+def test_route_by_shared_memory(card):
+    """Molecule pairs fit a block and run pcg_resident; the protein pairs
+    of the niche do not, and run pcg_stream, in the kernel class too."""
+    assert cuda_solver(64, 64, 24, 24, card) is pcg_resident
+    assert cuda_solver(1144, 1144, 88, 88, card) is pcg_stream
+    assert cuda_solver(3736, 3736, 272, 272, card) is pcg_stream
+    graphs = protein_niche_set(13, 2, (60, 90))
+    kernel = MarginalizedGraphKernel(
+        TensorProduct(element=KroneckerDelta(0.2)),
+        TensorProduct(length=SquareExponential(3.0),
+                      ctype=KroneckerDelta(0.3)),
+        q=0.05, device=card)
+    resident, stream = pcg_resident.launches, pcg_stream.launches
+    kernel(graphs)
+    assert pcg_resident.launches == resident
+    assert pcg_stream.launches == stream + 1
