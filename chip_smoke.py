@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``graphdot_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's two paths once each through their public entry point,
+Drives the port's paths once each through their public entry point,
 ``Normalization(MarginalizedGraphKernel(..., device='cuda'))(graphs)``:
 
 - the molecule slice, the cosine-normalized Gram over the 128 molecule
@@ -12,14 +12,22 @@ Drives the port's two paths once each through their public entry point,
   contact-map proteins of ``bench_protein.py`` (180-280 residues, 21 pairs
   padded to n = 272 nodes and m = 3736 edges), whose pairs do not fit and
   run in the CUDA kernel ``pcg_stream``;
+- the gradient slice, the same molecule Gram with ``eval_gradient=True``
+  (d K / d theta for p, q, h and the length scale), whose tangent systems
+  run in the CUDA kernel ``pcg_packed``, the 4 tangents of a pair as one
+  group; and the gradient of 48-72-atom molecules, whose tangents run in
+  ``pcg_stream``;
 
 and checks every part of them:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the build of both kernels from ``graphdot_tpu_torch/csrc``, one ``nvcc``
-   a source, started together;
+2. the build of the three kernels from ``graphdot_tpu_torch/csrc``, one
+   ``nvcc`` a source, started together;
 3. ``pcg_resident`` against its plain PyTorch twin on the systems of the
-   first 512 molecule pairs, on the card: max |dx| <= 1e-5 * max |x|;
+   first 512 molecule pairs, on the card: max |dx| <= 1e-5 * max |x|; and,
+   for the TPU timing prototype ``scripts/proto_pallas.py`` that it
+   covers, at the prototype's shape (2080 pairs, M = 64, N = 24) and fixed
+   16 steps (tol = 0) against the twin at the same step count;
 4. the normalized molecule Gram with ``backend='cuda'``: finite,
    symmetric, unit diagonal; ``pcg_resident`` launched once per job chunk
    and ``pcg_stream`` never; within 1e-6 of the same Gram with
@@ -42,7 +50,30 @@ and checks every part of them:
    ``pcg_stream`` and are within 1e-6 of ``backend='edge'``;
 9. timings with CUDA events: ``pcg_stream`` and its twin on one protein
    chunk, ``pcg_stream`` and ``pcg_resident`` on one molecule chunk, the
-   CG steps of both, and the protein Gram's wall time per build.
+   CG steps of both, and the protein Gram's wall time per build;
+10. ``pcg_packed`` against its twin: (a) the tangent groups (k = 4, one
+    shared operator) of the first 512 molecule pairs, (b) ``group_pairs(2)``
+    over the same pairs (the TPU's layout) against the twin and against
+    ``pcg_resident``, max |dx| <= 1e-5 * max |x| for both; (c) a group
+    beyond a block's shared memory raises;
+11. the gradient slice: K and dK [128, 128, 4] finite, K within 1e-6 of
+    phase 4's Gram, dK symmetric, its p column <= 1e-5 (p cancels in a
+    normalized kernel); ``pcg_packed`` launched once per job chunk and
+    ``pcg_stream`` never; dK within 1e-3 * max |dK| + 1e-5 of
+    ``backend='edge'``; K and dK over the first 8 graphs within 1e-6 and
+    1e-3 * max |dK| + 1e-5 of the JAX package's reference in
+    ``tests/fixtures/torch_port_grad_ref.npz``; central differences in
+    log theta (step 1e-3) within rtol 0.05, atol 0.05;
+12. the gradient of the 32 molecules of 48-72 atoms: tangents in
+    ``pcg_stream``, ``pcg_packed`` never; dK within phase 11's tolerance
+    of ``edge``;
+13. timings with CUDA events: ``pcg_packed`` and its twin on one gradient
+    chunk's tangent groups; ``pcg_packed`` on pair groups (k = 2 and 4)
+    against ``pcg_resident`` on one 4096-pair chunk, with the CG steps of
+    groups and of pairs; the gradient Gram's wall time beside the value
+    Gram's (medians of 5, in turns); one profiled gradient build
+    (``torch.profiler``): device busy share, device time by kernel, host
+    time in the solver's phases.
 
 Prints the kernel summary as one JSON line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -60,6 +91,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_gram_ref.npz'
+GRAD_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_grad_ref.npz'
 PROTEIN_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_protein_ref.npz'
 N_COMPARE = 512       # pairs in the kernel-vs-twin comparison
 BUILD_REPEATS = 5     # timed molecule Gram builds
@@ -68,6 +100,10 @@ PROTEIN_REPEATS = 3   # timed protein Gram builds
 PROTEINS = (13, 6, (180, 280))
 TPU_KERNEL = 'graphdot_tpu/ops/pallas_pcg.py:300'          # _pcg_kernel
 TPU_STREAM_KERNEL = 'graphdot_tpu/ops/pallas_pcg.py:567'   # _pcg_stream_kernel
+TPU_PACK_KERNEL = 'graphdot_tpu/ops/pallas_pcg.py:310'     # _pcg_pack_kernel
+TPU_PROTO_KERNEL = 'scripts/proto_pallas.py:89'            # pallas_solve
+PROTO_PAIRS, PROTO_STEPS = 2080, 16   # scripts/proto_pallas.py's P, ITERS
+GRAD_REPEATS = 5      # timed gradient Gram builds, in turns with value ones
 
 
 def say(*args):
@@ -103,6 +139,46 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def profile_gradient_build(build):
+    """One profiled call of ``build`` (a gradient Gram): wall time, device
+    busy share, device time by kernel, host time in the solver's phases."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        build()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    device = {}
+    host = {}
+    for e in events:
+        us = e.time_range.elapsed_us()
+        if e.name.startswith('mlgk_'):
+            # the solver's phase ranges: the host side only (the profiler
+            # also marks each range's span of kernels on the device)
+            if e.device_type == DeviceType.CPU:
+                host[e.name] = host.get(e.name, 0.0) + us
+        elif e.device_type == DeviceType.CUDA:
+            device[e.name] = device.get(e.name, 0.0) + us
+    busy = sum(device.values())
+    say(f'  profiled gradient build: wall {wall_us / 1e3:.3f} ms, device '
+        f'time {busy / 1e3:.3f} ms (busy share {busy / wall_us:.4f})')
+    if not device:
+        say('  the profiler recorded no device time: not measured')
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
+    for name, us in top:
+        say(f'    device {us / 1e3:9.3f} ms  {name[:90]}')
+    solves = sum(us for name, us in device.items() if 'pcg_' in name)
+    say(f'    device time in the PCG kernels {solves / 1e3:.3f} ms, in all '
+        f'other kernels {(busy - solves) / 1e3:.3f} ms')
+    for name in ('mlgk_setup', 'mlgk_value_solve', 'mlgk_tangents',
+                 'mlgk_tangent_solve'):
+        say(f'    host {host.get(name, 0.0) / 1e3:9.3f} ms in {name}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -114,13 +190,14 @@ def main():
     from graphdot_tpu_torch.convert import hyperparameters_from_numpy
     from graphdot_tpu_torch.kernel import (
         MarginalizedGraphKernel, Normalization)
-    from graphdot_tpu_torch.kernel.marginalized._solver import mlgk_setup
+    from graphdot_tpu_torch.kernel.marginalized._solver import (
+        mlgk_setup, mlgk_tangents)
     from graphdot_tpu_torch.microkernel import (
         KroneckerDelta, SquareExponential, TensorProduct)
     from graphdot_tpu_torch.ops import _build
     from graphdot_tpu_torch.ops.pcg import (
-        pcg_resident, pcg_resident_reference, pcg_stream,
-        pcg_stream_reference)
+        group_pairs, pcg_packed, pcg_packed_reference, pcg_resident,
+        pcg_resident_reference, pcg_stream, pcg_stream_reference)
     from graphdot_tpu_torch.testing import (
         protein_niche_set, random_molecule_set)
 
@@ -141,8 +218,8 @@ def main():
 
     say('== 2. kernel build')
     t0 = time.perf_counter()
-    _build.build('pcg_resident', 'pcg_stream')
-    say(f'  both built and loaded in {time.perf_counter() - t0:.2f} s')
+    _build.build(*_build.KERNELS)
+    say(f'  all three built and loaded in {time.perf_counter() - t0:.2f} s')
     build_report('pcg_resident')
 
     ref = np.load(FIXTURE)
@@ -196,6 +273,21 @@ def main():
     check(max_abs_err <= 1e-5 * scale,
           f'max |x_kernel - x_twin| = {max_abs_err:.3e} <= 1e-5 * '
           f'max |x| = {1e-5 * scale:.3e}')
+    proto = list(systems(PROTO_PAIRS, iters=PROTO_STEPS))
+    proto[8] = torch.zeros_like(proto[8])          # tol = 0: fixed steps
+    check(tuple(proto[0].shape[1:]) == (64, 64)
+          and tuple(proto[5].shape[1:]) == (24, 24),
+          f'{PROTO_PAIRS} pairs at the prototype\'s M = 64, N = 24')
+    x_k, it_k = pcg_resident(*proto)
+    x_r, it_r = pcg_resident_reference(*proto)
+    torch.cuda.synchronize()
+    proto_err = float((x_k - x_r).abs().max())
+    scale = float(x_r.abs().max())
+    check(bool((it_k == PROTO_STEPS).all() and (it_r == PROTO_STEPS).all()),
+          f'kernel and twin both ran {PROTO_STEPS} steps on every pair')
+    check(proto_err <= 1e-5 * scale,
+          f'{TPU_PROTO_KERNEL} covered: max |x_kernel - x_twin| = '
+          f'{proto_err:.3e} <= 1e-5 * max |x| = {1e-5 * scale:.3e}')
 
     say('== 4. the molecule slice: normalized 128-molecule Gram, '
         'backend=cuda')
@@ -365,17 +457,191 @@ def main():
         f'{PROTEIN_REPEATS} ({", ".join(f"{w * 1e3:.3f}" for w in walls)});'
         f' {p_pairs / wall:.2f} pairs/s at the median')
 
+    say('== 10. pcg_packed against its twin')
+    build_report('pcg_packed')
+
+    def tangent_groups(n):
+        """pcg_packed's operands for the tangent systems of the first n
+        molecule pairs: one group a pair, its 4 tangents sharing the pair's
+        operator, at the pair's value solution."""
+        idx1 = torch.as_tensor(i_jobs[:n], device='cuda')
+        idx2 = torch.as_tensor(j_jobs[:n], device='cuda')
+        ops = kernel._operands(bd, bd, idx1, idx2)
+        theta = kernel._theta_vector()
+        kw = dict(knode=kernel.node_kernel, kedge=kernel.edge_kernel,
+                  n_p_theta=1, mode='cuda')
+        s = mlgk_setup(theta, ops, **kw)
+        operator = [s[f].contiguous() for f in (
+            'T', 'esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'diag', 'precond')]
+        x, _ = pcg_resident(*operator, s['b'].contiguous(), s['tol'],
+                            maxiter)
+        rhs = mlgk_tangents(theta, ops, s, x, **kw)['rhs'].contiguous()
+        k = rhs.shape[1]
+        return ([a[:, None] for a in operator]
+                + [rhs, s['gtol'].contiguous(), min(maxiter * k, 16384)])
+
+    t_args = tangent_groups(N_COMPARE)
+    x_k, it_k = pcg_packed(*t_args)
+    x_r, it_r = pcg_packed_reference(*t_args)
+    torch.cuda.synchronize()
+    packed_err = float((x_k - x_r).abs().max())
+    scale = float(x_r.abs().max())
+    say(f'  (a) {N_COMPARE} tangent groups of k = {t_args[7].shape[1]}, '
+        f'shared operator; CG steps kernel mean '
+        f'{float(it_k.float().mean()):.2f} max {int(it_k.max())}, twin '
+        f'mean {float(it_r.float().mean()):.2f} max {int(it_r.max())}')
+    check(bool(torch.isfinite(x_k).all()), 'pcg_packed x is finite')
+    check(packed_err <= 1e-5 * scale,
+          f'max |x_packed - x_twin| = {packed_err:.3e} <= 1e-5 * max |x| = '
+          f'{1e-5 * scale:.3e}')
+    args = systems(N_COMPARE)
+    grouped = group_pairs(2, *args)
+    x_k, it_k = pcg_packed(*grouped)
+    x_r, _ = pcg_packed_reference(*grouped)
+    x_res, _ = pcg_resident(*args)
+    torch.cuda.synchronize()
+    x_k = x_k.reshape(-1, *x_k.shape[2:])[:N_COMPARE]
+    x_r = x_r.reshape(-1, *x_r.shape[2:])[:N_COMPARE]
+    scale = float(x_r.abs().max())
+    err_twin = float((x_k - x_r).abs().max())
+    err_res = float((x_k - x_res).abs().max())
+    check(err_twin <= 1e-5 * scale and err_res <= 1e-5 * scale,
+          f'(b) group_pairs(2): max |x_packed - x_twin| = {err_twin:.3e}, '
+          f'max |x_packed - x_resident| = {err_res:.3e} <= 1e-5 * max |x| '
+          f'= {1e-5 * scale:.3e}')
+    try:
+        pcg_packed(*group_pairs(16, *systems(64)))
+    except ValueError as e:
+        check('largest k that fits' in str(e),
+              f'(c) a group of 16 pairs raises: {e}')
+    else:
+        raise RuntimeError('check failed: a group of 16 pairs did not raise')
+
+    say('== 11. the gradient slice: normalized 128-molecule Gram with '
+        'eval_gradient=True, backend=cuda')
+    g_chunk = kernel._chunk_size(n_pad, m_pad, eval_gradient=True)
+    g_chunks = math.ceil(n_pairs / g_chunk)
+    pcg_resident.launches = pcg_stream.launches = pcg_packed.launches = 0
+    t0 = time.perf_counter()
+    KG, dKG = Normalization(kernel)(graphs, eval_gradient=True)
+    say(f'  first build {time.perf_counter() - t0:.4f} s, chunk {g_chunk}')
+    packed_launches = pcg_packed.launches
+    check(packed_launches == g_chunks,
+          f'pcg_packed launched {packed_launches} times = {g_chunks} chunks')
+    check(pcg_resident.launches == g_chunks and pcg_stream.launches == 0,
+          f'pcg_resident launched {pcg_resident.launches} times (value '
+          'solves), pcg_stream 0')
+    check(KG.shape == (n_graphs, n_graphs)
+          and dKG.shape == (n_graphs, n_graphs, 4),
+          f'K is {KG.shape}, dK is {dKG.shape}')
+    check(bool(np.isfinite(KG).all() and np.isfinite(dKG).all()),
+          'K and dK are finite')
+    err = float(np.abs(KG - K).max())
+    check(err <= 1e-6, f'max |K_grad - K_value| = {err:.3e} <= 1e-6')
+    err = float(np.abs(dKG - dKG.transpose(1, 0, 2)).max())
+    check(err <= 1e-12, f'dK is symmetric (max |dK - dK^T| = {err:.1e})')
+    err = float(np.abs(dKG[:, :, 0]).max())
+    check(err <= 1e-5, f'p cancels: max |dK_p| = {err:.3e} <= 1e-5')
+    _, dKG_edge = Normalization(make_kernel('edge'))(
+        graphs, eval_gradient=True)
+    grad_scale = float(np.abs(dKG_edge).max())
+    grad_edge_err = float(np.abs(dKG - dKG_edge).max())
+    check(grad_edge_err <= 1e-3 * grad_scale + 1e-5,
+          f'max |dK_cuda - dK_edge| = {grad_edge_err:.3e} <= 1e-3 * max '
+          f'|dK| + 1e-5 = {1e-3 * grad_scale + 1e-5:.3e}')
+    gref = np.load(GRAD_FIXTURE)
+    n_ref = int(gref['n_first'])
+    err = float(np.abs(KG[:n_ref, :n_ref] - gref['K']).max())
+    check(err <= 1e-6, f'max |K - K_jax| over the first {n_ref} graphs = '
+          f'{err:.3e} <= 1e-6')
+    tol = 1e-3 * float(np.abs(gref['dK']).max()) + 1e-5
+    err = float(np.abs(dKG[:n_ref, :n_ref] - gref['dK']).max())
+    check(err <= tol, f'max |dK - dK_jax| over the first {n_ref} graphs = '
+          f'{err:.3e} <= {tol:.3e}')
+    few = graphs[:n_ref]
+    theta0 = kernel.theta
+    for t in range(len(theta0)):
+        step = np.zeros_like(theta0)
+        step[t] = 1e-3
+        Kp = Normalization(kernel.clone_with_theta(theta0 + step))(few)
+        Km = Normalization(kernel.clone_with_theta(theta0 - step))(few)
+        fd = (Kp - Km) / 2e-3 / np.exp(theta0[t])
+        check(np.allclose(dKG[:n_ref, :n_ref, t], fd, rtol=0.05, atol=0.05),
+              f'central differences in log theta[{t}] (max |dK - fd| = '
+              f'{float(np.abs(dKG[:n_ref, :n_ref, t] - fd).max()):.3e})')
+
+    say('== 12. the gradient beyond shared memory: 32 molecules of 48-72 '
+        'atoms')
+    pcg_resident.launches = pcg_stream.launches = pcg_packed.launches = 0
+    _, dKB = Normalization(make_kernel())(big, eval_gradient=True)
+    check(pcg_stream.launches >= 2 and pcg_packed.launches == 0
+          and pcg_resident.launches == 0,
+          f'pcg_stream launched {pcg_stream.launches} times (value and '
+          'tangent solves), pcg_packed and pcg_resident 0')
+    _, dKB_edge = Normalization(make_kernel('edge'))(big, eval_gradient=True)
+    tol = 1e-3 * float(np.abs(dKB_edge).max()) + 1e-5
+    err = float(np.abs(dKB - dKB_edge).max())
+    check(bool(np.isfinite(dKB).all()) and err <= tol,
+          f'max |dK_cuda - dK_edge| = {err:.3e} <= {tol:.3e}')
+
+    say('== 13. timing of the gradient path')
+    t_args = tangent_groups(g_chunk)
+    _, t_steps = pcg_packed(*t_args)
+    packed_ms = cuda_ms(lambda: pcg_packed(*t_args), reps=10)
+    packed_plain_ms = cuda_ms(lambda: pcg_packed_reference(*t_args), reps=3)
+    say(f'  tangent groups of one gradient chunk ({g_chunk} pairs x 4, CG '
+        f'steps mean {float(t_steps.float().mean()):.3f}, max '
+        f'{int(t_steps.max())}): pcg_packed {packed_ms:.4f} ms, plain twin '
+        f'{packed_plain_ms:.4f} ms')
+    args = systems(chunk)
+    _, p_steps = pcg_resident(*args)
+    res_ms = cuda_ms(lambda: pcg_resident(*args), reps=20)
+    say(f'  one value chunk of {chunk} pairs: pcg_resident {res_ms:.4f} ms '
+        f'(CG steps mean {float(p_steps.float().mean()):.3f}, max '
+        f'{int(p_steps.max())})')
+    for k in (2, 4):
+        grouped = group_pairs(k, *args)
+        _, g_steps = pcg_packed(*grouped)
+        k_ms = cuda_ms(lambda: pcg_packed(*grouped), reps=20)
+        alone = p_steps[:grouped[7].shape[0] * k].reshape(-1, k)
+        say(f'  the same chunk in groups of k = {k} pairs: pcg_packed '
+            f'{k_ms:.4f} ms ({res_ms / k_ms:.3f}x pcg_resident); CG steps '
+            f'of groups mean {float(g_steps.float().mean()):.3f} max '
+            f'{int(g_steps.max())}, max over each group\'s pairs alone mean '
+            f'{float(alone.max(dim=1).values.float().mean()):.3f}')
+    walls = {'value': [], 'gradient': []}
+    for _ in range(GRAD_REPEATS):
+        for what in walls:
+            t0 = time.perf_counter()
+            Normalization(kernel)(graphs, eval_gradient=what == 'gradient')
+            torch.cuda.synchronize()
+            walls[what].append(time.perf_counter() - t0)
+    for what, ws in walls.items():
+        wall = float(np.median(ws))
+        say(f'  normalized {what} Gram build: median {wall * 1e3:.3f} ms '
+            f'over {GRAD_REPEATS} ({", ".join(f"{w * 1e3:.3f}" for w in ws)})'
+            f'; {n_pairs / wall:.1f} pairs/s at the median')
+    profile_gradient_build(lambda: Normalization(kernel)(
+        graphs, eval_gradient=True))
+
     say(json.dumps({'kernels': [{
         'name': 'pcg_resident', 'route': 'cuda',
         'source': 'graphdot_tpu_torch/csrc/pcg_resident.cu',
-        'replaces': TPU_KERNEL, 'launches': launches,
-        'max_abs_err': max_abs_err, 'ms': kernel_ms, 'plain_ms': plain_ms,
+        'replaces': TPU_KERNEL, 'covers': TPU_PROTO_KERNEL,
+        'launches': launches, 'max_abs_err': max_abs_err, 'ms': kernel_ms,
+        'plain_ms': plain_ms,
     }, {
         'name': 'pcg_stream', 'route': 'cuda',
         'source': 'graphdot_tpu_torch/csrc/pcg_stream.cu',
         'replaces': TPU_STREAM_KERNEL, 'launches': stream_launches,
         'max_abs_err': stream_err, 'ms': stream_ms,
         'plain_ms': stream_plain_ms,
+    }, {
+        'name': 'pcg_packed', 'route': 'cuda',
+        'source': 'graphdot_tpu_torch/csrc/pcg_packed.cu',
+        'replaces': TPU_PACK_KERNEL, 'launches': packed_launches,
+        'max_abs_err': packed_err, 'ms': packed_ms,
+        'plain_ms': packed_plain_ms,
     }]}))
     say(nvidia_smi())
     say(json.dumps({'ok': True, 'device': {

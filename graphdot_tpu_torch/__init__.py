@@ -5,7 +5,9 @@ The host layer that loads no JAX (graphs, padded batches, synthetic data,
 hyperparameter trees) is imported from :mod:`graphdot_tpu`; everything that
 computes on tensors is torch, and the product-graph PCG solve runs in
 hand-written CUDA kernels on the card: ``csrc/pcg_resident.cu`` for pairs
-that fit a block's shared memory, ``csrc/pcg_stream.cu`` for larger ones.
+that fit a block's shared memory, ``csrc/pcg_stream.cu`` for larger ones,
+and ``csrc/pcg_packed.cu`` for the hyperparameter gradient's tangent
+systems, the n_theta systems of a pair as one group.
 """
 from .graph import Graph
 

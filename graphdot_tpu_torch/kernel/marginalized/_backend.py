@@ -4,9 +4,10 @@
 Three ways to solve the product-graph systems:
 
 - ``'cuda'`` (what ``'auto'`` picks on a CUDA device): the edge-factored
-  operands go to the hand-written resident PCG kernel
-  (``ops/pcg.py::pcg_resident``), one CTA per pair, with all CG state in
-  shared memory.
+  operands go to the hand-written PCG kernels: ``ops/pcg.py::pcg_resident``
+  (one CTA per pair, all CG state in shared memory), ``pcg_stream`` for
+  pairs beyond a block's shared memory, and ``pcg_packed`` for the
+  gradient's tangent systems (one CTA per pair's group of them).
 - ``'edge'`` (what ``'auto'`` picks on the CPU): the same edge-factored
   matvec in plain torch (gathers and index-adds over the edge lists) inside
   a batched PCG.

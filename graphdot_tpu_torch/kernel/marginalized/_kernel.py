@@ -5,8 +5,10 @@ the sklearn-compatible ``theta``/``bounds``/``clone_with_theta``).
 The job list (upper-triangular or rectangular index set) is cut into
 chunks of pair indices, gathered on the kernel's device; all pairs in a
 chunk are solved at once by :func:`._solver.mlgk_solve`. Every tensor lives
-on the ``device`` given to the kernel. Hyperparameter gradients are not
-ported yet: ``eval_gradient=True`` raises ``NotImplementedError``.
+on the ``device`` given to the kernel. With ``eval_gradient=True`` each
+chunk also solves the tangent systems of every hyperparameter (forward
+mode, as the JAX package's ``jax.jacfwd``), and the results carry
+d K / d theta on the linear scale.
 """
 import copy
 import numbers
@@ -39,13 +41,6 @@ def _tree_map(f, tree):
     return f(tree)
 
 
-def _no_gradient(eval_gradient):
-    if eval_gradient:
-        raise NotImplementedError(
-            'graphdot_tpu_torch computes kernel values only; the gradient '
-            'solve is not ported yet')
-
-
 class MarginalizedGraphKernel:
     """Implements the random-walk-based graph similarity kernel proposed
     in Kashima, Tsuda & Inokuchi (ICML 2003) and accelerated per Tang &
@@ -63,9 +58,11 @@ class MarginalizedGraphKernel:
         The probability for the random walk to stop during each step.
     q_bounds: pair of floats
         Optimization bounds of q.
-    ftol: float
-        The CG convergence tolerance of the kernel-value solve (stop at
-        sqrt(rTr) < ftol * N).
+    eps, ftol, gtol: floats
+        eps is kept for API parity with the JAX class (a finite-difference
+        step there; unused, gradients are exact). ftol is the CG
+        convergence tolerance of the kernel-value solve (stop at
+        sqrt(rTr) < ftol * N); gtol that of the gradient's tangent solves.
     dtype: numpy dtype of returned matrices.
     backend: 'auto', 'cuda', 'edge', 'dense', or a Backend instance.
         'auto' is 'cuda' on a CUDA device and 'edge' on the CPU.
@@ -76,15 +73,18 @@ class MarginalizedGraphKernel:
     """
 
     def __init__(self, node_kernel, edge_kernel, p=1.0, q=0.01,
-                 q_bounds=(1e-4, 1 - 1e-4), ftol=1e-8, dtype=np.float64,
-                 backend='auto', buckets=False, device='cpu'):
+                 q_bounds=(1e-4, 1 - 1e-4), eps=1e-2, ftol=1e-8, gtol=1e-6,
+                 dtype=np.float64, backend='auto', buckets=False,
+                 device='cpu'):
         self.buckets = buckets
         self.node_kernel = node_kernel
         self.edge_kernel = edge_kernel
         self.p = self._get_starting_probability(p)
         self.q = q
         self.q_bounds = q_bounds
+        self.eps = eps
         self.ftol = ftol
+        self.gtol = gtol
         self.element_dtype = dtype
         self.device = resolve_device(device)
         self.backend = backend_factory(backend, self.device)
@@ -182,6 +182,7 @@ class MarginalizedGraphKernel:
             'degree_1': bd1['degree'][idx1],
             'degree_2': bd2['degree'][idx2],
             'ftol': float(self.ftol),
+            'gtol': float(self.gtol),
         }
         if self.backend.mode == 'dense':
             ops['adj_1'] = bd1['adj'][idx1]
@@ -197,23 +198,41 @@ class MarginalizedGraphKernel:
         return ops
 
     def _solve_chunk(self, theta, bd1, bd2, idx1, idx2, pf1, pf2, nodal,
-                     lmin):
-        """Solve one chunk of jobs; returns R [P, n1, n2] (nodal) or the
-        kernel values [P], as a float32 tensor."""
+                     lmin, eval_gradient=False):
+        """Solve one chunk of jobs; returns (R [P, n1, n2] (nodal) or the
+        kernel values [P], and with ``eval_gradient`` d R / d theta
+        [P(, n1, n2), n_dims], else None), as float32 tensors."""
         ops = self._operands(bd1, bd2, idx1, idx2)
         n_pad = max(bd1['node_mask'].shape[1], bd2['node_mask'].shape[1])
         n_p = len(list(flatten(self.p.theta)))
-        x, _, _ = mlgk_solve(
+        out = mlgk_solve(
             theta, ops, knode=self.node_kernel, kedge=self.edge_kernel,
             n_p_theta=n_p, lmin=lmin, mode=self.backend.mode,
-            maxiter=self.maxiter(n_pad)
+            maxiter=self.maxiter(n_pad), tangents=eval_gradient
         )
-        p1 = self.p.apply(theta[:n_p], ops['node_mask_1'],
-                          None if pf1 is None else pf1[idx1])
-        p2 = self.p.apply(theta[:n_p], ops['node_mask_2'],
-                          None if pf2 is None else pf2[idx2])
+        pf1 = None if pf1 is None else pf1[idx1]
+        pf2 = None if pf2 is None else pf2[idx2]
+
+        def weights(t):
+            """p1 and p2 of the pairs under the hyperparameters t"""
+            return (self.p.apply(t[:n_p], ops['node_mask_1'], pf1),
+                    self.p.apply(t[:n_p], ops['node_mask_2'], pf2))
+
+        x = out[0]
+        p1, p2 = weights(theta)
         R = weight_by_p(x, p1, p2)
-        return R if nodal else torch.sum(R, dim=(1, 2))
+        dR = None
+        if eval_gradient:
+            # product rule of weight_by_p: dR = x_dot o w + x o w_dot, with
+            # w = p1 p2^T
+            w_dot = torch.func.jacfwd(
+                lambda t: weight_by_p(1.0, *weights(t)))(theta.detach())
+            dR = out[3] * weight_by_p(1.0, p1, p2)[..., None] \
+                + x[..., None] * w_dot
+        if nodal:
+            return R, dR
+        return (torch.sum(R, dim=(1, 2)),
+                None if dR is None else torch.sum(dR, dim=(1, 2)))
 
     @staticmethod
     def maxiter(n_pad):
@@ -221,11 +240,13 @@ class MarginalizedGraphKernel:
         product-space dimension, capped at 10000."""
         return min(n_pad * n_pad, 10000)
 
-    def _chunk_size(self, n_pad, m_pad):
+    def _chunk_size(self, n_pad, m_pad, eval_gradient=False, nodal=False):
         """Job-chunk size bounded by the solver's working-set memory
         (~256 MB of float32 per chunk; ~4 GB for pairs that run in
         ``pcg_stream``, which solves one pair per SM, so that a chunk keeps
-        more of the card busy)."""
+        more of the card busy). Gradients carry one tangent system per
+        hyperparameter, and nodal gradients [chunk, n, n, n_dims] outputs,
+        which scale the per-pair working set as in the JAX package."""
         budget = 1 << 26  # floats
         if self.backend.mode == 'dense':
             per_pair = max(n_pad ** 4, 1)
@@ -236,20 +257,29 @@ class MarginalizedGraphKernel:
             if self.backend.mode == 'cuda' and cuda_solver(
                     m_pad, m_pad, n_pad, n_pad, self.device) is pcg_stream:
                 budget = STREAM_CHUNK_FLOATS
+        if eval_gradient:
+            n_theta = max(int(self.n_dims), 1)
+            per_pair *= 1 + n_theta
+            if nodal:
+                per_pair += n_pad * n_pad * n_theta
         return int(np.clip(budget // per_pair, 1, 4096))
 
     def _run_chunks(self, theta, bd1, bd2, pf1, pf2, i_jobs, j_jobs, chunk,
-                    nodal, lmin):
+                    nodal, lmin, eval_gradient):
         """Solve the jobs in chunks of at most ``chunk`` pairs; returns
-        the concatenated results as a numpy array."""
-        outs = []
+        the concatenated results as a numpy array, and the concatenated
+        gradients (None without ``eval_gradient``)."""
+        outs, grads = [], []
         for s in range(0, len(i_jobs), chunk):
             idx1 = torch.as_tensor(i_jobs[s:s + chunk], device=self.device)
             idx2 = torch.as_tensor(j_jobs[s:s + chunk], device=self.device)
-            res = self._solve_chunk(theta, bd1, bd2, idx1, idx2, pf1, pf2,
-                                    nodal, lmin)
+            res, grad = self._solve_chunk(theta, bd1, bd2, idx1, idx2, pf1,
+                                          pf2, nodal, lmin, eval_gradient)
             outs.append(res.cpu().numpy())
-        return np.concatenate(outs, axis=0)
+            if eval_gradient:
+                grads.append(grad.cpu().numpy())
+        grad = np.concatenate(grads, axis=0) if eval_gradient else None
+        return np.concatenate(outs, axis=0), grad
 
     def _size_classes(self, graphs, align=8):
         """Partition graph indices into padded-size classes."""
@@ -259,9 +289,11 @@ class MarginalizedGraphKernel:
             classes.setdefault(n_pad, []).append(gi)
         return classes
 
-    def _solve_jobs(self, graphs, i_jobs, j_jobs, nodal, lmin):
-        """Solve all (i, j) jobs; returns [P(,n1,n2)] numpy arrays. With
-        ``buckets`` on and heterogeneous sizes, jobs are grouped into
+    def _solve_jobs(self, graphs, i_jobs, j_jobs, nodal, lmin,
+                    eval_gradient=False):
+        """Solve all (i, j) jobs; returns [P(,n1,n2)] numpy arrays, and with
+        ``eval_gradient`` a pair (values, [P(,n1,n2), n_dims] gradients).
+        With ``buckets`` on and heterogeneous sizes, jobs are grouped into
         per-size-class batches so small pairs are not padded to the global
         maximum."""
         theta = self._theta_vector()
@@ -272,11 +304,13 @@ class MarginalizedGraphKernel:
         if not classes or len(classes) <= 1:
             batch, batch_dict, p_fixed = self._prepare_batch(graphs)
             chunk = self._chunk_size(batch.node_mask.shape[1],
-                                     batch.esrc.shape[1])
-            return self._run_chunks(
+                                     batch.esrc.shape[1], eval_gradient,
+                                     nodal)
+            out, grad = self._run_chunks(
                 theta, batch_dict, batch_dict, p_fixed, p_fixed,
-                i_jobs, j_jobs, chunk, nodal, lmin
+                i_jobs, j_jobs, chunk, nodal, lmin, eval_gradient
             )
+            return (out, grad) if eval_gradient else out
 
         # ---- bucketed path ----
         class_of = np.empty(len(graphs), dtype=np.int64)
@@ -302,23 +336,30 @@ class MarginalizedGraphKernel:
             )
 
         raw = [None] * len(i_jobs)
+        raw_grad = [None] * len(i_jobs) if eval_gradient else None
         for (ca, cb), entries in groups.items():
             _, bd1, pf1 = batches[ca]
             batch_b, bd2, pf2 = batches[cb]
             m_pad = max(
                 batches[ca][0].esrc.shape[1], batch_b.esrc.shape[1]
             )
-            chunk = self._chunk_size(cb, m_pad)
+            chunk = self._chunk_size(cb, m_pad, eval_gradient, nodal)
             ps, l1, l2, swaps = map(np.asarray, zip(*entries))
-            out = self._run_chunks(
-                theta, bd1, bd2, pf1, pf2, l1, l2, chunk, nodal, lmin
+            out, grad = self._run_chunks(
+                theta, bd1, bd2, pf1, pf2, l1, l2, chunk, nodal, lmin,
+                eval_gradient
             )
             for k, p in enumerate(ps):
                 o = out[k]
+                g = grad[k] if eval_gradient else None
                 if swaps[k] and nodal:
                     o = np.swapaxes(o, 0, 1)
+                    if g is not None:
+                        g = np.swapaxes(g, 0, 1)
                 raw[p] = o
-        return raw
+                if eval_gradient:
+                    raw_grad[p] = g
+        return (raw, raw_grad) if eval_gradient else raw
 
     @staticmethod
     def _check_types(graphs):
@@ -345,15 +386,15 @@ class MarginalizedGraphKernel:
         ----------
         X: list of N graphs (must have identical feature signatures)
         Y: None or list of M graphs
-        eval_gradient: must be False; gradients are not ported yet.
+        eval_gradient: if True, also return d K / d theta (linear scale,
+            active hyperparameters only).
         nodal: if True, return node-wise similarities.
         lmin: 0 or 1 — number of steps to skip in each random walk path.
 
         Returns
         -------
-        kernel_matrix: ndarray
+        kernel_matrix: ndarray; plus the gradient ndarray if eval_gradient.
         """
-        _no_gradient(eval_gradient)
         all_graphs = list(X) + (list(Y) if Y is not None else [])
         self._check_types(all_graphs)
 
@@ -366,18 +407,26 @@ class MarginalizedGraphKernel:
         i = i.ravel()
         j = j.ravel()
 
-        raw = self._solve_jobs(all_graphs, i, j, nodal=bool(nodal),
-                               lmin=lmin)
+        result = self._solve_jobs(all_graphs, i, j, nodal=bool(nodal),
+                                  lmin=lmin, eval_gradient=eval_gradient)
+        raw, raw_grad = result if eval_gradient else (result, None)
         sizes = np.array([len(g.nodes) for g in all_graphs])
-        gramian = self._assemble(
-            raw, i, j, sizes, len(X), len(Y) if Y is not None else None,
-            nodal
+        gramian, gradient = self._assemble(
+            raw, raw_grad, i, j, sizes, len(X),
+            len(Y) if Y is not None else None, nodal
         )
+        if eval_gradient:
+            return (gramian.astype(self.element_dtype),
+                    gradient[:, :, self.active_theta_mask].astype(
+                        self.element_dtype))
         return gramian.astype(self.element_dtype)
 
-    def _assemble(self, raw, i_jobs, j_jobs, sizes, nX, nY, nodal):
-        """Scatter per-pair results into the output matrix layout."""
+    def _assemble(self, raw, raw_grad, i_jobs, j_jobs, sizes, nX, nY,
+                  nodal):
+        """Scatter per-pair results (and gradients, when ``raw_grad`` is not
+        None) into the output matrix layout; returns (R, dR or None)."""
         symmetric = nY is None
+        n_dims = self.n_dims
         if nodal:
             starts = np.concatenate([[0], np.cumsum(sizes)])
             if symmetric:
@@ -388,47 +437,84 @@ class MarginalizedGraphKernel:
                 cols = starts[len(sizes)] - starts[nX]
                 col_base = starts - starts[nX]
             R = np.zeros((rows, cols))
+            dR = None if raw_grad is None else np.zeros((rows, cols, n_dims))
             for p, (gi, gj) in enumerate(zip(i_jobs, j_jobs)):
                 ni, nj = sizes[gi], sizes[gj]
                 r0, c0 = starts[gi], col_base[gj]
                 R[r0:r0 + ni, c0:c0 + nj] = raw[p][:ni, :nj]
+                if dR is not None:
+                    dR[r0:r0 + ni, c0:c0 + nj] = raw_grad[p][:ni, :nj]
                 if symmetric and gi != gj:
                     R[c0:c0 + nj, r0:r0 + ni] = raw[p][:ni, :nj].T
-            return R
+                    if dR is not None:
+                        dR[c0:c0 + nj, r0:r0 + ni] = np.swapaxes(
+                            raw_grad[p][:ni, :nj], 0, 1)
+            return R, dR
         raw = np.asarray(raw)
+        grad = None if raw_grad is None else np.asarray(raw_grad)
         if symmetric:
             R = np.zeros((nX, nX))
             R[i_jobs, j_jobs] = raw
             R[j_jobs, i_jobs] = raw
+            dR = None
+            if grad is not None:
+                dR = np.zeros((nX, nX, n_dims))
+                dR[i_jobs, j_jobs] = grad
+                dR[j_jobs, i_jobs] = grad
         else:
             R = np.zeros((nX, nY))
             R[i_jobs, j_jobs - nX] = raw
-        return R
+            dR = None
+            if grad is not None:
+                dR = np.zeros((nX, nY, n_dims))
+                dR[i_jobs, j_jobs - nX] = grad
+        return R, dR
 
-    def diag(self, X, eval_gradient=False, nodal=False, lmin=0):
+    def diag(self, X, eval_gradient=False, nodal=False, lmin=0,
+             active_theta_only=True):
         """Compute the self-similarities of a list of graphs.
 
         nodal=False -> [N] graph self-similarities; nodal=True -> vector of
         nodal self-similarities; nodal='block' -> list of per-graph nodal
-        similarity matrices.
+        similarity matrices. With ``eval_gradient``, also their gradients
+        in the hyperparameters (linear scale; active ones only when
+        ``active_theta_only``, except for ``'block'``, as in the JAX
+        class).
         """
-        _no_gradient(eval_gradient)
         self._check_types(X)
         if nodal not in (True, False, 'block'):
             raise ValueError("Invalid 'nodal' option '%s'" % nodal)
 
         i = np.arange(len(X))
-        raw = self._solve_jobs(list(X), i, i, nodal=bool(nodal), lmin=lmin)
+        result = self._solve_jobs(list(X), i, i, nodal=bool(nodal),
+                                  lmin=lmin, eval_gradient=eval_gradient)
+        raw, raw_grad = result if eval_gradient else (result, None)
         sizes = np.array([len(g.nodes) for g in X])
+        grad = raw_grad
         if nodal is True:
             out = np.concatenate([
                 np.diagonal(raw[p][:n, :n]) for p, n in enumerate(sizes)
             ])
+            if eval_gradient:
+                grad = np.concatenate([
+                    np.diagonal(raw_grad[p][:n, :n], axis1=0, axis2=1).T
+                    for p, n in enumerate(sizes)
+                ])
         elif nodal == 'block':
-            return [raw[p][:n, :n] for p, n in enumerate(sizes)]
+            out = [raw[p][:n, :n] for p, n in enumerate(sizes)]
+            if eval_gradient:
+                return out, [raw_grad[p][:n, :n].astype(self.element_dtype)
+                             for p, n in enumerate(sizes)]
+            return out
         else:
             out = raw
-        return np.asarray(out).astype(self.element_dtype)
+        out = np.asarray(out).astype(self.element_dtype)
+        if not eval_gradient:
+            return out
+        grad = np.asarray(grad)
+        if active_theta_only:
+            grad = grad[..., self.active_theta_mask]
+        return out, grad.astype(self.element_dtype)
 
     # ------------------------------------------------------------------
     # scikit-learn interoperability

@@ -1,5 +1,5 @@
-"""Batched product-graph MLGK solver, forward value; counterpart of
-``graphdot_tpu/kernel/marginalized/_solver.py``.
+"""Batched product-graph MLGK solver, values and hyperparameter tangents;
+counterpart of ``graphdot_tpu/kernel/marginalized/_solver.py``.
 
 Each graph pair's system is the generalized Kronecker system of the dense
 oracle in ``tests/oracle.py``:
@@ -12,11 +12,22 @@ matrix ``T[e1,e2] = w1 w2 k_edge(e1,e2)`` over the directed edge lists
 (``'edge'`` in plain torch, ``'cuda'`` in the CUDA PCG kernels, routed
 by :func:`cuda_solver`). The batched PCG loop itself lives in
 :mod:`graphdot_tpu_torch.ops.pcg`, where the kernels' plain twins share it.
+
+Gradients in the hyperparameters theta are forward mode, as the JAX
+package's ``jax.jacfwd`` through ``lax.custom_linear_solve``: for every
+direction d, ``A x_d = b_d - A_d x`` with the same A, where ``A_d`` and
+``b_d`` come from ``torch.func.jacfwd`` of :func:`mlgk_setup`'s elementwise
+part (:func:`mlgk_tangents`). Mode ``'cuda'`` solves a pair's n_theta
+tangent systems as one group of ``pcg_packed`` (:func:`cuda_tangent_solver`).
+:func:`solve_linear` is the reverse-mode counterpart of
+``custom_linear_solve``, a ``torch.autograd.Function``.
 """
+import functools
+
 import torch
 
-from ...ops.pcg import (gather_offdiag, pcg, pcg_resident, pcg_stream,
-                        resident_smem)
+from ...ops.pcg import (gather_offdiag, largest_packed_k, pcg, pcg_packed,
+                        pcg_resident, pcg_stream, resident_smem)
 
 # ---------------------------------------------------------------------------
 # feature pytree helpers
@@ -106,6 +117,78 @@ def cuda_solver(M1, M2, N1, N2, device):
     return pcg_resident if smem <= limit else pcg_stream
 
 
+def _packed_tangents(group, T, esrc1, edst1, esrc2, edst2, diag, precond,
+                     rhs, tol, maxiter):
+    """The k tangent systems of each of P pairs in :func:`pcg_packed`, in
+    groups of ``group`` members that share their pair's operator (a member
+    stride of 0). k is padded to a multiple of ``group`` with zero right-hand
+    sides, which stay zero; every member has its pair's tol, and maxiter is
+    scaled by the group size, as the JAX package's packing does. Returns
+    (x [P, k, N1, N2], iters [P * groups])."""
+    P, k, N1, N2 = rhs.shape
+    n_groups = -(-k // group)
+    pad = n_groups * group - k
+    if pad:
+        rhs = torch.cat([rhs, rhs.new_zeros(P, pad, N1, N2)], dim=1)
+
+    def per_group(a):
+        """[P, ...] -> [P * n_groups, 1, ...]"""
+        a = a.unsqueeze(1)
+        if n_groups > 1:
+            a = a.expand(P, n_groups, *a.shape[2:]).reshape(
+                P * n_groups, 1, *a.shape[2:])
+        return a
+
+    x, iters = pcg_packed(
+        *(per_group(a) for a in (T, esrc1, edst1, esrc2, edst2, diag,
+                                 precond)),
+        rhs.reshape(P * n_groups, group, N1, N2).contiguous(),
+        tol.repeat_interleave(n_groups), min(maxiter * group, 16384))
+    return x.reshape(P, n_groups * group, N1, N2)[:, :k], iters
+
+
+def _stream_tangents(T, esrc1, edst1, esrc2, edst2, diag, precond, rhs, tol,
+                     maxiter):
+    """The k tangent systems of each of P pairs as P * k systems of
+    :func:`pcg_stream`, each pair's operator repeated k times."""
+    P, k, N1, N2 = rhs.shape
+
+    def rep(a):
+        return a.repeat_interleave(k, dim=0)
+
+    x, iters = pcg_stream(
+        *(rep(a) for a in (T, esrc1, edst1, esrc2, edst2, diag, precond)),
+        rhs.reshape(P * k, N1, N2).contiguous(), rep(tol), maxiter)
+    return x.view(P, k, N1, N2), iters
+
+
+def cuda_tangent_solver(k, M1, M2, N1, N2, device):
+    """The solver that mode ``'cuda'`` runs the k tangent systems of each
+    pair of a chunk with, as ``solve(T, esrc1, edst1, esrc2, edst2, diag,
+    precond, rhs [P, k, N1, N2], tol [P], maxiter) -> (x [P, k, N1, N2],
+    iters)``:
+
+    - the k systems of a pair as one group of :func:`pcg_packed` sharing
+      the pair's operator, when such a group fits the shared memory a
+      block can get on the CUDA ``device``;
+    - else groups of the largest size that fits;
+    - :func:`pcg_stream` over P * k systems when a single pair does not
+      fit a block (as :func:`cuda_solver` routes its value solve).
+
+    On the CPU the groups hold all k systems, and :func:`pcg_packed` runs
+    its plain twin. The route is chosen by these rules before any launch,
+    never after a failure."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return functools.partial(_packed_tangents, k)
+    smem, limit = resident_smem(M1, M2, N1, N2, device)
+    group = largest_packed_k(k, M1, M2, N1, N2, device, shared=True) \
+        if smem <= limit else 0
+    if group == 0:
+        return _stream_tangents
+    return functools.partial(_packed_tangents, group)
+
+
 def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode):
     """Build the product-graph systems of a batch of graph pairs.
 
@@ -122,7 +205,8 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode):
     Returns
     -------
     dict with ``Vx``, ``valid``, ``diag``, ``precond``, ``b`` [P, n1, n2],
-    ``tol`` [P], and the coupling: ``T`` [P, M1, M2] with the int32 edge
+    ``tol`` [P] (``ops['ftol'] * n1 * n2``; ``gtol`` [P] too when ops
+    has ``'gtol'``), and the coupling: ``T`` [P, M1, M2] with the int32 edge
     lists ``esrc_1``, ``edst_1``, ``esrc_2``, ``edst_2`` (edge-factored
     modes), or ``W`` [P, n1, n1, n2, n2] ('dense').
     """
@@ -161,8 +245,11 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode):
         'diag': torch.where(ok, dx / torch.where(ok, Vx, 1.0), 1.0),
         'precond': torch.where(ok, Vx / torch.where(ok, dx, 1.0), 1.0),
         'b': torch.where(ok, dx, 0.0),
-        'tol': ops['ftol'] * (mask1.sum(dim=1) * mask2.sum(dim=1)),
     }
+    n_true = mask1.sum(dim=1) * mask2.sum(dim=1)
+    system['tol'] = ops['ftol'] * n_true
+    if 'gtol' in ops:
+        system['gtol'] = ops['gtol'] * n_true
 
     if mode == 'dense':
         adj1, adj2 = ops['adj_1'], ops['adj_2']
@@ -194,55 +281,233 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode):
     return system
 
 
+def _repeat(a, k):
+    """Each pair's entry k times in a row: [P, ...] -> [P * k, ...]."""
+    return a if k == 1 else a.repeat_interleave(k, dim=0)
+
+
+def _plain_offdiag(system, mode, k):
+    """The off-diagonal matvec of the plain modes over Y [P * k, n1, n2]:
+    k systems a pair, all with the pair's coupling."""
+    P, n1, n2 = system['diag'].shape
+    if mode == 'dense':
+        W = system['W']
+
+        def offdiag(Y):
+            return torch.einsum('cijkl,cdjl->cdik', W,
+                                Y.view(P, k, n1, n2)).reshape(P * k, n1, n2)
+        return offdiag
+    T = _repeat(system['T'], k)
+    edges = [_repeat(system[f], k).long()
+             for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2')]
+    return functools.partial(gather_offdiag, T, *edges)
+
+
+def _plain_solve(system, mode, b, tol, maxiter):
+    """Solve ``A x = b`` for b [P, k, n1, n2] (k right-hand sides a pair)
+    by the plain batched :func:`pcg` of modes ``'edge'`` and ``'dense'``,
+    every one of the P * k systems to its pair's tol."""
+    P, k, n1, n2 = b.shape
+    N = n1 * n2
+    offdiag = _plain_offdiag(system, mode, k)
+    diag_flat = _repeat(system['diag'].reshape(P, N), k)
+
+    def matvec(y):
+        return diag_flat * y - offdiag(y.view(P * k, n1, n2)).reshape(
+            P * k, N)
+
+    x = pcg(matvec, b.reshape(P * k, N),
+            _repeat(system['precond'].reshape(P, N), k), _repeat(tol, k),
+            maxiter)
+    return x.view(P, k, n1, n2)
+
+
+def _detached(system):
+    """The system's tensors cut from autograd."""
+    return {f: v.detach() for f, v in system.items()}
+
+
+def _value_solver(system, mode, maxiter):
+    """``solve(b [P, n1, n2]) -> x`` with the system's operator at its
+    value tol, in the mode's route (:func:`cuda_solver` for ``'cuda'``)."""
+    s = _detached(system)
+    diag, precond, tol = (s[f].contiguous()
+                          for f in ('diag', 'precond', 'tol'))
+    if mode == 'cuda':
+        T = s['T']
+        P, n1, n2 = diag.shape
+        solver = cuda_solver(T.shape[1], T.shape[2], n1, n2, T.device)
+
+        def solve(b):
+            return solver(T, s['esrc_1'], s['edst_1'], s['esrc_2'],
+                          s['edst_2'], diag, precond, b.contiguous(), tol,
+                          maxiter)[0]
+        return solve
+
+    def solve(b):
+        return _plain_solve(s, mode, b.unsqueeze(1), tol, maxiter)[:, 0]
+    return solve
+
+
+class _SolveLinear(torch.autograd.Function):
+    """x = A(theta)^-1 b(theta) with implicit-function gradients; A is the
+    symmetric product-graph operator ``matvec(y, diag, coupling)``."""
+
+    @staticmethod
+    def forward(ctx, matvec, solve, b, diag, coupling):
+        x = solve(b.detach())
+        ctx.matvec, ctx.solve = matvec, solve
+        ctx.save_for_backward(x, diag, coupling)
+        return x
+
+    @staticmethod
+    def backward(ctx, x_bar):
+        x, diag, coupling = ctx.saved_tensors
+        # the adjoint system: A is symmetric, so A^T lam = x_bar is one
+        # more solve by the same route
+        lam = ctx.solve(x_bar.contiguous())
+        with torch.enable_grad():
+            operands = [t.detach().requires_grad_() for t in (diag, coupling)]
+            Ax = ctx.matvec(x, *operands)
+            d_diag, d_coupling = torch.autograd.grad(
+                Ax, operands, grad_outputs=-lam)
+        return None, None, lam, d_diag, d_coupling
+
+
+def solve_linear(system, mode, maxiter):
+    """Solve a chunk's systems ``A x = b`` (:func:`mlgk_setup`'s output) to
+    their value tol, differentiably in the system's tensors: the reverse-
+    mode counterpart of the JAX package's ``solve_linear``
+    (``lax.custom_linear_solve(symmetric=True)``).
+
+    The forward solve runs in the mode's route (:func:`cuda_solver` for
+    ``'cuda'``); the backward pass solves the adjoint system ``A lam =
+    x_bar`` by the same route, then takes ``b_bar = lam`` and the operator's
+    cotangents from autograd through the plain matvec at ``-lam^T A x``.
+    Returns x [P, n1, n2]."""
+    P, n1, n2 = system['diag'].shape
+    if mode == 'dense':
+        coupling = system['W']
+
+        def offdiag(W, Y):
+            return torch.einsum('cijkl,cjl->cik', W, Y)
+    else:
+        coupling = system['T']
+        edges = [system[f].long()
+                 for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2')]
+
+        def offdiag(T, Y):
+            return gather_offdiag(T, *edges, Y)
+
+    def matvec(y, diag, C):
+        return diag * y - offdiag(C, y)
+
+    return _SolveLinear.apply(matvec, _value_solver(system, mode, maxiter),
+                              system['b'], system['diag'], coupling)
+
+
+def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode):
+    """The tangent right-hand sides of the product-graph systems, one for
+    each of the n_theta directions of theta:
+
+        rhs_d = b_d - A_d x = b_d - diag_d o x + offdiag(T_d, x)
+
+    with ``T_d``, ``diag_d`` and ``b_d`` from ``torch.func.jacfwd`` of
+    :func:`mlgk_setup`'s elementwise part in theta (``W_d`` in mode
+    ``'dense'``), and the plain gather matvec, which is linear in T, on each
+    direction's ``T_d``: the gather itself is not differentiated.
+
+    Parameters
+    ----------
+    theta, ops, knode, kedge, n_p_theta, mode: as :func:`mlgk_setup`.
+    system: :func:`mlgk_setup`'s output at theta.
+    x: [P, n1, n2] the systems' solutions at theta.
+
+    Returns
+    -------
+    dict with ``rhs`` [P, n_theta, n1, n2] and ``Vx`` [P, n_theta, n1, n2],
+    the tangents of the node-kernel diagonal (for ``lmin == 1``).
+    """
+    coupling = 'W' if mode == 'dense' else 'T'
+
+    def elementwise(t):
+        s = mlgk_setup(t, ops, knode=knode, kedge=kedge,
+                       n_p_theta=n_p_theta, mode=mode)
+        return s['diag'], s['b'], s[coupling], s['Vx']
+
+    diag_d, b_d, C_d, Vx_d = (
+        torch.movedim(t, -1, 1)
+        for t in torch.func.jacfwd(elementwise)(theta.detach()))
+    P, k, n1, n2 = diag_d.shape
+    xk = x.detach().unsqueeze(1).expand(P, k, n1, n2)
+    if mode == 'dense':
+        off = torch.einsum('cdijkl,cjl->cdik', C_d, x.detach())
+    else:
+        edges = [_repeat(system[f], k).long()
+                 for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2')]
+        off = gather_offdiag(
+            C_d.reshape(P * k, *C_d.shape[2:]), *edges,
+            xk.reshape(P * k, n1, n2)).view(P, k, n1, n2)
+    return {'rhs': b_d - diag_d * xk + off, 'Vx': Vx_d}
+
+
 def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
-               maxiter):
+               maxiter, tangents=False):
     """Solve a batch of graph-pair MLGK systems (see :func:`mlgk_setup`
     for the arguments; ``lmin`` is 0 or 1, ``maxiter`` the CG step bound).
+
+    The value solve runs at ``ops['ftol']`` through :func:`solve_linear`,
+    so x is differentiable by autograd in theta. With ``tangents``, the
+    n_theta tangent systems of every pair run at ``ops['gtol']``: in
+    :func:`cuda_tangent_solver`'s route for mode ``'cuda'``, in the plain
+    PCG for the others. The four phases run in ``torch.profiler``
+    ranges named ``mlgk_setup``, ``mlgk_value_solve``, ``mlgk_tangents``
+    and ``mlgk_tangent_solve``.
 
     Returns
     -------
     x: [P, n1, n2] solution of the product-graph system (zero on padding)
     Vx: [P, n1, n2] node-kernel diagonal
     valid: [P, n1, n2] product-space validity mask
+    x_dot: [P, n1, n2, n_theta] d x / d theta (only with ``tangents``)
     """
-    s = mlgk_setup(theta, ops, knode=knode, kedge=kedge,
-                   n_p_theta=n_p_theta, mode=mode)
-    Vx, valid, diag = s['Vx'], s['valid'], s['diag']
-    P, n1, n2 = diag.shape
-    N = n1 * n2
+    record = torch.profiler.record_function
+    with record('mlgk_setup'):
+        s = mlgk_setup(theta, ops, knode=knode, kedge=kedge,
+                       n_p_theta=n_p_theta, mode=mode)
+    Vx, valid = s['Vx'], s['valid']
+    with record('mlgk_value_solve'):
+        x = solve_linear(s, mode, maxiter)
 
-    if mode == 'cuda':
-        T = s['T']
-        solver = cuda_solver(T.shape[1], T.shape[2], n1, n2, T.device)
-        x, _ = solver(
-            T, s['esrc_1'], s['edst_1'], s['esrc_2'], s['edst_2'],
-            diag.contiguous(), s['precond'].contiguous(),
-            s['b'].contiguous(), s['tol'].contiguous(), maxiter)
-    else:
-        if mode == 'dense':
-            W = s['W']
-
-            def offdiag(Y):
-                return torch.einsum('cijkl,cjl->cik', W, Y)
-        else:
-            T = s['T']
-            edges = [s[f].long()
-                     for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2')]
-
-            def offdiag(Y):
-                return gather_offdiag(T, *edges, Y)
-
-        diag_flat = diag.reshape(P, N)
-
-        def matvec(y):
-            return diag_flat * y - offdiag(y.view(P, n1, n2)).reshape(P, N)
-
-        x = pcg(matvec, s['b'].reshape(P, N), s['precond'].reshape(P, N),
-                s['tol'], maxiter).view(P, n1, n2)
+    x_dot = None
+    if tangents:
+        with record('mlgk_tangents'):
+            t = mlgk_tangents(theta, ops, s, x, knode=knode, kedge=kedge,
+                              n_p_theta=n_p_theta, mode=mode)
+        rhs = t['rhs']
+        sd = _detached(s)
+        with record('mlgk_tangent_solve'):
+            if mode == 'cuda':
+                T = sd['T']
+                P, k, n1, n2 = rhs.shape
+                solver = cuda_tangent_solver(k, T.shape[1], T.shape[2], n1,
+                                             n2, T.device)
+                x_dot, _ = solver(
+                    T, sd['esrc_1'], sd['edst_1'], sd['esrc_2'],
+                    sd['edst_2'], sd['diag'].contiguous(),
+                    sd['precond'].contiguous(), rhs.contiguous(),
+                    sd['gtol'].contiguous(), maxiter)
+            else:
+                x_dot = _plain_solve(sd, mode, rhs, sd['gtol'], maxiter)
+        if lmin == 1:
+            x_dot = x_dot - torch.where(valid[:, None] > 0, t['Vx'], 0.0)
+        x_dot = torch.movedim(x_dot, 1, -1)
 
     if lmin == 1:
         # skip the l=0 term of the random-walk sum
         x = x - torch.where(valid > 0, Vx, 0.0)
+    if tangents:
+        return x, Vx, valid, x_dot
     return x, Vx, valid
 
 

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch twins."""
-from .pcg import (pcg_resident, pcg_resident_reference, pcg_stream,
-                  pcg_stream_reference)
+from .pcg import (group_pairs, pcg_packed, pcg_packed_reference, pcg_resident,
+                  pcg_resident_reference, pcg_stream, pcg_stream_reference)
 
-__all__ = ['pcg_resident', 'pcg_resident_reference', 'pcg_stream',
+__all__ = ['group_pairs', 'pcg_packed', 'pcg_packed_reference',
+           'pcg_resident', 'pcg_resident_reference', 'pcg_stream',
            'pcg_stream_reference']

@@ -5,7 +5,8 @@ Each source compiles on its own into a shared library with a plain C
 interface, under ``build/graphdot_tpu_torch/`` at the root of the checkout;
 the file name carries a hash of the source and the flags, so an edited
 source builds anew and an unchanged one is reused. :func:`build` starts
-one ``nvcc`` a source, all at once. A failed build raises.
+one ``nvcc`` a source, all at once, for the sources of :data:`KERNELS`. A
+failed build raises.
 """
 import ctypes
 import hashlib
@@ -22,6 +23,9 @@ NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 )
+
+#: the kernel sources in ``csrc/``, by name
+KERNELS = ('pcg_resident', 'pcg_stream', 'pcg_packed')
 
 #: source name -> (ctypes.CDLL, {'seconds': build wall time until it was
 #: collected, 'log': nvcc output})
@@ -47,6 +51,8 @@ def nvcc_path():
 
 def _target(name):
     """(source path, nvcc, library path) of ``csrc/<name>.cu``."""
+    if name not in KERNELS:
+        raise ValueError(f'unknown kernel source {name!r}; one of {KERNELS}')
     src = _CSRC / f'{name}.cu'
     nvcc = nvcc_path()
     key = hashlib.sha256(

@@ -2,9 +2,10 @@
 twins.
 
 Counterpart of ``graphdot_tpu/ops/pallas_pcg.py``: ``pallas_pcg`` (the
-``k == 1`` branch of ``pallas_pcg_solver`` and ``_cg_solve_values``) and
-``pallas_pcg_stream`` (``_stream_solver``). Every function here solves,
-for every pair p of a batch,
+``k == 1`` branch of ``pallas_pcg_solver`` and ``_cg_solve_values``),
+``pallas_pcg_packed`` (its ``k >= 2`` branch) and ``pallas_pcg_stream``
+(``_stream_solver``). Every function here solves, for every pair p of a
+batch,
 
     [diag o Y - S1^T (T o (D1 Y D2^T)) S2] x = b
 
@@ -25,6 +26,12 @@ lists (``esrc``/``edst`` indices), not as one-hot matrices.
   tensors it runs :func:`pcg_stream_reference`.
 - :func:`pcg_stream_reference` is its plain twin, the same function as
   :func:`pcg_resident_reference`.
+- :func:`pcg_packed` launches ``csrc/pcg_packed.cu`` on CUDA tensors: one
+  CTA per group of k systems that run ONE PCG on their union, with the dot
+  products summed over the members and shared step sizes, stopping at the
+  group's tolerance. The members share one operator (the tangent systems
+  of a pair) or have one each (groups of pairs, :func:`group_pairs`).
+  Given CPU tensors it runs :func:`pcg_packed_reference`.
 """
 import ctypes
 import functools
@@ -109,6 +116,32 @@ def gather_offdiag(T, esrc1, edst1, esrc2, edst2, Y):
     return out.view(P, N1, N2)
 
 
+def _validate(operands, device, maxiter, index_lists):
+    """Check each operand's type, shape, dtype, device and contiguity,
+    ``maxiter``, and that every index list lies in [0, n) of its side."""
+    for name, (t, shape, dtype) in operands.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f'{name} must be a torch.Tensor')
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f'{name} must have shape {shape}, got {tuple(t.shape)}')
+        if t.dtype != dtype:
+            raise TypeError(f'{name} must be {dtype}, got {t.dtype}')
+        if t.device != device:
+            raise ValueError(
+                f'{name} is on {t.device}, T is on {device}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    if not isinstance(maxiter, int) or maxiter < 0:
+        raise ValueError(f'maxiter must be a non-negative int: {maxiter!r}')
+    # one device-to-host sync for all index lists
+    bad = torch.zeros((), dtype=torch.bool, device=device)
+    for e, n in index_lists:
+        bad = bad | ((e < 0) | (e >= n)).any()
+    if bool(bad):
+        raise ValueError('edge indices out of range of the node counts')
+
+
 def _check(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter):
     """Validate the operands of both solvers; returns (P, M1, M2, N1, N2)."""
     if T.dim() != 3:
@@ -118,7 +151,7 @@ def _check(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter):
         raise ValueError(
             f'diag must be [P={P}, N1, N2], got {tuple(diag.shape)}')
     N1, N2 = diag.shape[1:]
-    shapes = {
+    _validate({
         'esrc1': (esrc1, (P, M1), torch.int32),
         'edst1': (edst1, (P, M1), torch.int32),
         'esrc2': (esrc2, (P, M2), torch.int32),
@@ -128,29 +161,40 @@ def _check(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter):
         'precond': (precond, (P, N1, N2), torch.float32),
         'b': (b, (P, N1, N2), torch.float32),
         'tol': (tol, (P,), torch.float32),
-    }
-    for name, (t, shape, dtype) in shapes.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f'{name} must be a torch.Tensor')
-        if tuple(t.shape) != shape:
-            raise ValueError(
-                f'{name} must have shape {shape}, got {tuple(t.shape)}')
-        if t.dtype != dtype:
-            raise TypeError(f'{name} must be {dtype}, got {t.dtype}')
-        if t.device != T.device:
-            raise ValueError(
-                f'{name} is on {t.device}, T is on {T.device}')
-        if not t.is_contiguous():
-            raise ValueError(f'{name} must be contiguous')
-    if not isinstance(maxiter, int) or maxiter < 0:
-        raise ValueError(f'maxiter must be a non-negative int: {maxiter!r}')
-    # one device-to-host sync for all four index lists
-    bad = torch.zeros((), dtype=torch.bool, device=T.device)
-    for e, n in ((esrc1, N1), (edst1, N1), (esrc2, N2), (edst2, N2)):
-        bad = bad | ((e < 0) | (e >= n)).any()
-    if bool(bad):
-        raise ValueError('edge indices out of range of the node counts')
+    }, T.device, maxiter,
+        ((esrc1, N1), (edst1, N1), (esrc2, N2), (edst2, N2)))
     return P, M1, M2, N1, N2
+
+
+def _check_packed(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+                  maxiter):
+    """Validate the operands of the packed solver; returns
+    (S, k, ka, M1, M2, N1, N2), ka being 1 or k operators a group."""
+    if T.dim() != 4:
+        raise ValueError(
+            f'T must be [S, ka, M1, M2], got {tuple(T.shape)}')
+    if b.dim() != 4 or b.shape[0] != T.shape[0]:
+        raise ValueError(
+            f'b must be [S={T.shape[0]}, k, N1, N2], got {tuple(b.shape)}')
+    S, ka, M1, M2 = T.shape
+    k, N1, N2 = b.shape[1:]
+    if ka not in (1, k):
+        raise ValueError(
+            f'T has {ka} operators a group; give 1 (shared by the members) '
+            f'or k = {k}')
+    _validate({
+        'esrc1': (esrc1, (S, ka, M1), torch.int32),
+        'edst1': (edst1, (S, ka, M1), torch.int32),
+        'esrc2': (esrc2, (S, ka, M2), torch.int32),
+        'edst2': (edst2, (S, ka, M2), torch.int32),
+        'T': (T, (S, ka, M1, M2), torch.float32),
+        'diag': (diag, (S, ka, N1, N2), torch.float32),
+        'precond': (precond, (S, ka, N1, N2), torch.float32),
+        'b': (b, (S, k, N1, N2), torch.float32),
+        'tol': (tol, (S,), torch.float32),
+    }, T.device, maxiter,
+        ((esrc1, N1), (edst1, N1), (esrc2, N2), (edst2, N2)))
+    return S, k, ka, M1, M2, N1, N2
 
 
 def _plain_pcg(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
@@ -194,6 +238,67 @@ def pcg_stream_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
                       maxiter)
 
 
+def pcg_packed_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
+                         tol, maxiter):
+    """Plain-torch twin of :func:`pcg_packed`, with the same arguments and
+    results: ``(x [S,k,N1,N2] f32, iters [S] int32)``.
+
+    One PCG over the union of each group's k members, the loop of
+    ``_cg_solve_values`` on ``_pcg_pack_kernel``'s block-diagonal union:
+    :func:`pcg` over the group's k members laid end to end, so that
+    ``rz``, ``pAp`` and ``r.r`` are summed over the members, alpha and beta
+    are shared, the breakdown guards apply to the group and the group stops
+    at ``sqrt(sum_m r_m.r_m) < tol[s]``. Each member's matvec is
+    :func:`gather_offdiag` over its own operator."""
+    S, k, ka, M1, M2, N1, N2 = _check_packed(
+        T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter)
+    N = N1 * N2
+
+    def members(a):
+        """[S, ka, ...] -> [S * k, ...], one operator a member"""
+        return a.expand(S, k, *a.shape[2:]).reshape(S * k, *a.shape[2:])
+
+    Tm = members(T)
+    edges = [members(e).long() for e in (esrc1, edst1, esrc2, edst2)]
+    diag_flat = members(diag).reshape(S, k * N)
+
+    def matvec(y):
+        off = gather_offdiag(Tm, *edges, y.view(S * k, N1, N2))
+        return diag_flat * y - off.reshape(S, k * N)
+
+    x, iters = pcg(matvec, b.reshape(S, k * N),
+                   members(precond).reshape(S, k * N), tol, maxiter,
+                   return_iters=True)
+    return x.view(S, k, N1, N2), iters
+
+
+def group_pairs(k, T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+                maxiter):
+    """Group P pairs into S = ceil(P / k) groups of k members for
+    :func:`pcg_packed`: the packed branch of
+    ``graphdot_tpu/ops/pallas_pcg.py::pallas_pcg_solver``, the TPU's
+    layout (every member its own pair).
+
+    P is padded to a multiple of k with zero systems (T, diag, precond and
+    b zero, edges 0 -> 0, tol 1.0), the operands are reshaped to
+    [S, k, ...], each group's tol is the min over its members and maxiter
+    is scaled to ``min(maxiter * k, 16384)``. Returns the arguments of
+    :func:`pcg_packed`; its x, reshaped to [S * k, N1, N2], holds the pairs'
+    solutions in its first P rows."""
+    P = T.shape[0]
+    pad = -P % k
+
+    def grouped(a, value=0):
+        if pad:
+            a = torch.cat([a, a.new_full((pad, *a.shape[1:]), value)])
+        return a.reshape(-1, k, *a.shape[1:]).contiguous()
+
+    return (*(grouped(a) for a in (T, esrc1, edst1, esrc2, edst2, diag,
+                                   precond, b)),
+            grouped(tol, 1.0).min(dim=1).values,
+            min(maxiter * k, 16384))
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     """The built kernel library, with its C signatures declared."""
@@ -227,6 +332,20 @@ def _stream_library():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _packed_library():
+    """The built packed-kernel library, with its C signatures."""
+    lib = _build.load('pcg_packed')
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    lib.graphdot_pcg_packed.argtypes = [ptr] * 11 + [cint] * 8 + [ptr]
+    lib.graphdot_pcg_packed.restype = cint
+    lib.graphdot_pcg_packed_smem_bytes.argtypes = [cint] * 6
+    lib.graphdot_pcg_packed_smem_bytes.restype = ctypes.c_size_t
+    lib.graphdot_cuda_error_string.argtypes = [cint]
+    lib.graphdot_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _raise_on(lib, err, what):
     if err:
         msg = lib.graphdot_cuda_error_string(err).decode()
@@ -253,6 +372,26 @@ def resident_smem(M1, M2, N1, N2, device):
     these shapes, bytes a block can opt into on the CUDA ``device``)."""
     return (_library().graphdot_pcg_resident_smem_bytes(M1, M2, N1, N2),
             _smem_limit(device))
+
+
+def packed_smem(k, M1, M2, N1, N2, device, shared=False):
+    """(bytes of shared memory :func:`pcg_packed` needs for a group of k
+    members of these shapes, bytes a block can opt into on the CUDA
+    ``device``). ``shared``: the members share one operator (T, edges,
+    diag and precond given once a group)."""
+    nbytes = _packed_library().graphdot_pcg_packed_smem_bytes(
+        k, 1 if shared else k, M1, M2, N1, N2)
+    return nbytes, _smem_limit(device)
+
+
+def largest_packed_k(k, M1, M2, N1, N2, device, shared=False):
+    """The largest group size up to ``k`` whose group fits a block's shared
+    memory on the CUDA ``device``; 0 when not even one member fits."""
+    for g in range(k, 0, -1):
+        nbytes, limit = packed_smem(g, M1, M2, N1, N2, device, shared)
+        if nbytes <= limit:
+            return g
+    return 0
 
 
 def pcg_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
@@ -372,3 +511,68 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
 
 #: kernel launches made by :func:`pcg_stream` in this process
 pcg_stream.launches = 0
+
+
+def pcg_packed(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+               maxiter):
+    """Solve groups of product-graph systems with the packed CUDA PCG: one
+    PCG on the union of each group's k members, with shared step sizes
+    (see :func:`pcg_packed_reference` for the semantics).
+
+    Parameters
+    ----------
+    T: [S, ka, M1, M2] float32 edge-coupling matrices; ka is k (each member
+        its own operator) or 1 (the k members share one).
+    esrc1, edst1: [S, ka, M1] int32; esrc2, edst2: [S, ka, M2] int32.
+    diag, precond: [S, ka, N1, N2] float32.
+    b: [S, k, N1, N2] float32 right-hand sides, one a member.
+    tol: [S] float32 absolute thresholds on the group's residual norm (the
+        min over its members' own: :func:`group_pairs`).
+    maxiter: int, CG step bound of a group.
+
+    Returns
+    -------
+    (x [S, k, N1, N2] float32, iters [S] int32)
+
+    CUDA tensors launch the kernel on the current stream and add one to
+    ``pcg_packed.launches``; CPU tensors run :func:`pcg_packed_reference`.
+    Raises when a group exceeds the shared memory a block can get, naming
+    the largest k that fits, or when the launch fails.
+    """
+    S, k, ka, M1, M2, N1, N2 = _check_packed(
+        T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter)
+    if T.device.type == 'cpu':
+        return pcg_packed_reference(T, esrc1, edst1, esrc2, edst2, diag,
+                                    precond, b, tol, maxiter)
+    if T.device.type != 'cuda':
+        raise ValueError(f'pcg_packed runs on CUDA or CPU, not {T.device}')
+    lib = _packed_library()
+    device = _device_index(T.device)
+    shared = ka == 1 and k > 1
+    smem, limit = packed_smem(k, M1, M2, N1, N2, T.device, shared)
+    if smem > limit:
+        fits = largest_packed_k(k, M1, M2, N1, N2, T.device, shared)
+        raise ValueError(
+            f'a group of k={k} members with M1={M1}, M2={M2}, N1={N1}, '
+            f'N2={N2} ({"one shared" if shared else "one a member"} '
+            f'operator) needs {smem} bytes of shared memory; a block can '
+            f'have {limit}. The largest k that fits is {fits}.')
+    x = torch.empty_like(b)
+    iters = torch.empty(S, dtype=torch.int32, device=T.device)
+    if S == 0:
+        return x, iters
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.graphdot_pcg_packed(
+            T.data_ptr(), esrc1.data_ptr(), edst1.data_ptr(),
+            esrc2.data_ptr(), edst2.data_ptr(), diag.data_ptr(),
+            precond.data_ptr(), b.data_ptr(), tol.data_ptr(),
+            x.data_ptr(), iters.data_ptr(),
+            S, k, ka, M1, M2, N1, N2, maxiter, stream)
+    _raise_on(lib, err, 'pcg_packed launch')
+    pcg_packed.launches += 1
+    return x, iters
+
+
+#: kernel launches made by :func:`pcg_packed` in this process
+pcg_packed.launches = 0

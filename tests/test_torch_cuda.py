@@ -21,7 +21,8 @@ from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
 from graphdot_tpu_torch.microkernel import (  # noqa: E402
     KroneckerDelta, SquareExponential, TensorProduct)
 from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
-    pcg_resident, pcg_resident_reference, pcg_stream, pcg_stream_reference)
+    group_pairs, pcg_packed, pcg_packed_reference, pcg_resident,
+    pcg_resident_reference, pcg_stream, pcg_stream_reference)
 from graphdot_tpu_torch.testing import (  # noqa: E402
     protein_niche_set, random_molecule_set)
 
@@ -191,6 +192,74 @@ def test_stream_no_pairs_launches_nothing(card):
     x, iters = pcg_stream(*args, 10)
     assert x.shape[0] == 0 and iters.shape == (0,)
     assert pcg_stream.launches == before
+
+
+@pytest.mark.parametrize('k', [2, 3])
+def test_packed_kernel_matches_twin_on_pairs(card, k):
+    """Groups of k different pairs (the TPU's layout), P not a multiple of
+    k: against the twin and against pcg_resident per pair."""
+    args = _systems(card, (9, 24), (9, 24))     # 20 pairs
+    grouped = group_pairs(k, *args)
+    before = pcg_packed.launches
+    x, iters = pcg_packed(*grouped)
+    torch.cuda.synchronize()
+    assert pcg_packed.launches == before + 1
+    x_ref, iters_ref = pcg_packed_reference(*grouped)
+    scale = float(x_ref.abs().max())
+    assert bool(torch.isfinite(x).all())
+    assert float((x - x_ref).abs().max()) <= 1e-5 * scale
+    assert int((iters - iters_ref).abs().max()) <= 1
+    P = args[0].shape[0]
+    x_res, _ = pcg_resident(*args)
+    assert float((x.reshape(-1, *x.shape[2:])[:P] - x_res).abs().max()) \
+        <= 1e-5 * scale
+
+
+def test_packed_kernel_shared_operator(card):
+    """Tangent-style groups (one operator shared by the k members, a
+    member stride of 0) against the twin and against the operator copied
+    k times; a zero member stays zero, an all-zero group takes 0 steps."""
+    args = _systems(card, (9, 24), (9, 24))
+    S, k = 6, 4
+    shared = [a[:S, None].contiguous() for a in args[:7]]
+    rng = np.random.default_rng(1)
+    b = torch.tensor(rng.normal(size=(S, k, *args[5].shape[1:])),
+                     dtype=torch.float32, device=card)
+    b[1] = 0.0
+    b[2, 3] = 0.0
+    tol, maxiter = args[8][:S], args[9] * k
+    x, iters = pcg_packed(*shared, b, tol, maxiter)
+    x_ref, iters_ref = pcg_packed_reference(*shared, b, tol, maxiter)
+    copied = [a.expand(S, k, *a.shape[2:]).contiguous() for a in shared]
+    x_cp, _ = pcg_packed(*copied, b, tol, maxiter)
+    torch.cuda.synchronize()
+    scale = float(x_ref.abs().max())
+    assert float((x - x_ref).abs().max()) <= 1e-5 * scale
+    assert float((x_cp - x_ref).abs().max()) <= 1e-5 * scale
+    assert int((iters - iters_ref).abs().max()) <= 1
+    assert int(iters[1]) == 0 and not x[1].any() and not x[2, 3].any()
+
+
+def test_packed_group_beyond_shared_memory_raises(card):
+    M, N, k = 128, 24, 8
+    T = torch.zeros(1, k, M, M, device=card)
+    e = torch.zeros(1, k, M, dtype=torch.int32, device=card)
+    d = torch.ones(1, k, N, N, device=card)
+    with pytest.raises(ValueError, match='largest k that fits is [1-7]'):
+        pcg_packed(T, e, e, e, e, d, d, d, torch.ones(1, device=card), 8)
+
+
+def test_gradient_cuda_matches_edge(card):
+    graphs = random_molecule_set(5, 12, n_atoms_range=(9, 24))
+    packed, stream = pcg_packed.launches, pcg_stream.launches
+    K, dK = Normalization(_kernel(card))(graphs, eval_gradient=True)
+    assert pcg_packed.launches == packed + 1
+    assert pcg_stream.launches == stream
+    K_edge, dK_edge = Normalization(_kernel(card, 'edge'))(
+        graphs, eval_gradient=True)
+    np.testing.assert_allclose(K, K_edge, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(dK, dK_edge, rtol=0,
+                               atol=1e-3 * np.abs(dK_edge).max() + 1e-5)
 
 
 def test_route_by_shared_memory(card):

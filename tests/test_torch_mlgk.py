@@ -307,14 +307,19 @@ def test_import_loads_no_jax():
 
 
 def test_eval_gradient_not_ported():
+    """The gradient is ported now: every entry point returns it (values
+    held against JAX in ``test_torch_gradient.py``)."""
     G = molecules()[:2]
     k = MarginalizedGraphKernel(**slice_kernels(tmk))
-    with pytest.raises(NotImplementedError):
-        k(G, eval_gradient=True)
-    with pytest.raises(NotImplementedError):
-        k.diag(G, eval_gradient=True)
-    with pytest.raises(NotImplementedError):
-        Normalization(k)(G, eval_gradient=True)
+    n_theta = len(k.theta)
+    K, dK = k(G, eval_gradient=True)
+    assert K.shape == (2, 2) and dK.shape == (2, 2, n_theta)
+    np.testing.assert_allclose(K, k(G), rtol=0, atol=0)
+    D, dD = k.diag(G, eval_gradient=True)
+    assert D.shape == (2,) and dD.shape == (2, n_theta)
+    K, dK = Normalization(k)(G, eval_gradient=True)
+    assert dK.shape == (2, 2, n_theta)
+    assert np.isfinite(dK).all()
 
 
 def test_cuda_device_without_card_raises(monkeypatch):
