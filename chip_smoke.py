@@ -36,8 +36,10 @@ and checks every part of them:
 5. timings with CUDA events: ``pcg_resident`` and its twin at the molecule
    chunk shape, and the wall time of a whole molecule Gram build;
 6. ``pcg_stream``'s build, and the kernel against its twin on the systems
-   of the first protein chunk, and against ``pcg_resident`` on the first
-   512 molecule pairs: max |dx| <= 1e-5 * max |x| for both;
+   of the first protein chunk and on a lone protein pair, each pair split
+   over the default C CTAs (``stream_ctas_per_pair``) and over one, two
+   runs at the default C bitwise equal, and against ``pcg_resident`` on
+   the first 512 molecule pairs: max |dx| <= 1e-5 * max |x| for all;
 7. the normalized protein Gram with ``backend='cuda'``: finite, symmetric,
    unit diagonal; ``pcg_stream`` launched once per chunk and
    ``pcg_resident`` never; within 1e-5 of ``backend='edge'`` on the card
@@ -48,9 +50,11 @@ and checks every part of them:
    runs in ``pcg_stream`` and is within 1e-6 of the JAX Gram; 32 molecules
    of 48-72 atoms (n = 72, m = 192, over 227 KB a pair) run in
    ``pcg_stream`` and are within 1e-6 of ``backend='edge'``;
-9. timings with CUDA events: ``pcg_stream`` and its twin on one protein
-   chunk, ``pcg_stream`` and ``pcg_resident`` on one molecule chunk, the
-   CG steps of both, and the protein Gram's wall time per build;
+9. timings with CUDA events, in turns (C = 1, default, default, C = 1):
+   ``pcg_stream`` on one protein chunk and on a lone protein pair, beside
+   the twin on both; ``pcg_stream`` and ``pcg_resident`` on one molecule
+   chunk, the CG steps of both; the protein Gram's wall time per build,
+   and one profiled protein build (``torch.profiler``);
 10. ``pcg_packed`` against its twin: (a) the tangent groups (k = 4, one
     shared operator) of the first 512 molecule pairs, (b) ``group_pairs(2)``
     over the same pairs (the TPU's layout) against the twin and against
@@ -75,8 +79,11 @@ and checks every part of them:
     (``torch.profiler``): device busy share, device time by kernel, host
     time in the solver's phases.
 
-Prints the kernel summary as one JSON line, then the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``. Exits
+Prints the kernel summary as one JSON line (each kernel's time beside its
+bound: the larger of the bytes of its inputs and outputs over 3.35 TB/s
+and the float32 operations of the CG steps it ran, over the live edges,
+over 67 TFLOP/s), then the card's name and power limit, and as its last
+line ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when a phase fails or there is no CUDA
 device. Usage: ``python3 chip_smoke.py`` from the root of the checkout.
 """
@@ -104,6 +111,13 @@ TPU_PACK_KERNEL = 'graphdot_tpu/ops/pallas_pcg.py:310'     # _pcg_pack_kernel
 TPU_PROTO_KERNEL = 'scripts/proto_pallas.py:89'            # pallas_solve
 PROTO_PAIRS, PROTO_STEPS = 2080, 16   # scripts/proto_pallas.py's P, ITERS
 GRAD_REPEATS = 5      # timed gradient Gram builds, in turns with value ones
+#: NVIDIA H100 SXM peaks from its datasheet: HBM3 bytes/s and float32
+#: operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+#: float32 operations of a CG step per element of a system, beside its
+#: matvec: Ap, pAp, x, r, z, rz, r.r and p
+CG_OPS_PER_ELEMENT = 15
 
 
 def say(*args):
@@ -139,9 +153,45 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def profile_gradient_build(build):
-    """One profiled call of ``build`` (a gradient Gram): wall time, device
-    busy share, device time by kernel, host time in the solver's phases."""
+def live_edges(T):
+    """(L1, L2): the edges of each operator of T [..., M1, M2] whose row,
+    or column, of T holds a nonzero (the edges the solve needs)."""
+    nz = T != 0
+    return nz.any(dim=-1).sum(dim=-1), nz.any(dim=-2).sum(dim=-1)
+
+
+def pcg_bound(args, x, steps):
+    """The least time the card could take for one PCG call on these
+    operands, ``(ms, 'bytes' or 'operations', stream floor ms)``. Bytes:
+    every input read once, x and the step counts written once. Operations:
+    for each system, the CG steps it ran times, per member, the live matvec
+    (2 L1 L2) and CG_OPS_PER_ELEMENT a product-graph node. The stream
+    floor adds what a solve whose T exceeds the L2 cache must read: the
+    live part of T once per CG step, beside one read of the padded T."""
+    import torch
+    T = args[0]
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    nbytes += x.numel() * x.element_size() + steps.numel() * 4
+    L1, L2 = (v.double() for v in live_edges(T))
+    n = x.shape[-1] * x.shape[-2]
+    per_step = 2 * L1 * L2 + CG_OPS_PER_ELEMENT * n
+    live_T = 4 * L1 * L2
+    if T.dim() == 4:   # pcg_packed: [S, ka, ...], k members a group
+        members = x.shape[1] // T.shape[1]
+        per_step = per_step.sum(dim=1) * members
+        live_T = live_T.sum(dim=1)
+    ops = float((per_step * steps.double()).sum())
+    floor = T.numel() * 4 + float((live_T * steps.double()).sum())
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return (max(by_bytes, by_ops), 'bytes' if by_bytes >= by_ops
+            else 'operations', floor / HBM_BYTES_PER_S * 1e3)
+
+
+def profile_build(build, what):
+    """One profiled call of ``build`` (a Gram): wall time, device busy
+    share, device time by kernel, host time in the solver's phases."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -164,7 +214,7 @@ def profile_gradient_build(build):
         elif e.device_type == DeviceType.CUDA:
             device[e.name] = device.get(e.name, 0.0) + us
     busy = sum(device.values())
-    say(f'  profiled gradient build: wall {wall_us / 1e3:.3f} ms, device '
+    say(f'  profiled {what} build: wall {wall_us / 1e3:.3f} ms, device '
         f'time {busy / 1e3:.3f} ms (busy share {busy / wall_us:.4f})')
     if not device:
         say('  the profiler recorded no device time: not measured')
@@ -321,12 +371,14 @@ def main():
 
     say('== 5. timing')
     args = systems(chunk)
-    _, steps = pcg_resident(*args)
+    x_k, steps = pcg_resident(*args)
+    resident_bound = pcg_bound(args, x_k, steps)
     kernel_ms = cuda_ms(lambda: pcg_resident(*args), reps=20)
     plain_ms = cuda_ms(lambda: pcg_resident_reference(*args), reps=5)
     say(f'  one chunk of {chunk} pairs (CG steps mean '
         f'{float(steps.float().mean()):.3f}, max {int(steps.max())}): '
-        f'kernel {kernel_ms:.4f} ms, plain twin {plain_ms:.4f} ms')
+        f'kernel {kernel_ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound '
+        f'{resident_bound[0]:.4f} ms ({resident_bound[1]})')
     walls = []
     for _ in range(BUILD_REPEATS):
         t0 = time.perf_counter()
@@ -360,18 +412,33 @@ def main():
         f'chunk {p_chunk}, T {tuple(p_args[0].shape)} '
         f'({p_args[0].numel() * 4 / 1e6:.1f} MB)')
     check(pkernel.backend.mode == 'cuda', "backend 'auto' resolves to cuda")
-    x_s, it_s = pcg_stream(*p_args)
-    x_r, it_r = pcg_stream_reference(*p_args)
+    lone = [a[:1] for a in p_args[:-1]] + [p_args[-1]]
+    stream_err = 0.0
+    for what, sys_args in (('protein chunk', p_args), ('lone pair', lone)):
+        x_r, it_r = pcg_stream_reference(*sys_args)
+        scale = float(x_r.abs().max())
+        for ctas in (None, 1):
+            x_s, it_s = pcg_stream(*sys_args, ctas_per_pair=ctas)
+            torch.cuda.synchronize()
+            used = pcg_stream.last_ctas_per_pair
+            err = float((x_s - x_r).abs().max())
+            if ctas is None:
+                check(used > 1, f'{what}: the default spreads a pair over '
+                      f'{used} CTAs')
+                if sys_args is p_args:
+                    stream_err = err
+            say(f'  {what}, C = {used}: CG steps kernel {it_s.tolist()}, '
+                f'twin {it_r.tolist()}')
+            check(bool(torch.isfinite(x_s).all()) and err <= 1e-5 * scale,
+                  f'{what}, C = {used}: x finite, max |x_stream - x_twin| = '
+                  f'{err:.3e} <= 1e-5 * max |x| = {1e-5 * scale:.3e}')
+    x_a, it_a = pcg_stream(*p_args)
+    x_b, it_b = pcg_stream(*p_args)
     torch.cuda.synchronize()
-    stream_err = float((x_s - x_r).abs().max())
-    scale = float(x_r.abs().max())
-    say(f'  first protein chunk: CG steps kernel {it_s.tolist()}, twin '
-        f'{it_r.tolist()}')
-    check(bool(torch.isfinite(x_s).all()), 'pcg_stream x is finite')
-    check(stream_err <= 1e-5 * scale,
-          f'max |x_stream - x_twin| = {stream_err:.3e} <= 1e-5 * max |x| = '
-          f'{1e-5 * scale:.3e}')
-    del x_s, x_r
+    check(torch.equal(x_a, x_b) and torch.equal(it_a, it_b),
+          f'two runs at C = {pcg_stream.last_ctas_per_pair} are bitwise '
+          'equal')
+    del x_s, x_r, x_a, x_b
     args = systems(N_COMPARE)
     x_s, _ = pcg_stream(*args)
     x_k, _ = pcg_resident(*args)
@@ -389,6 +456,8 @@ def main():
     KP = Normalization(pkernel)(proteins)
     say(f'  first build {time.perf_counter() - t0:.4f} s')
     stream_launches = pcg_stream.launches
+    stream_ctas = pcg_stream.last_ctas_per_pair
+    say(f'  pcg_stream ran {stream_ctas} CTAs a pair')
     check(stream_launches == p_chunks,
           f'pcg_stream launched {stream_launches} times = {p_chunks} chunks')
     check(pcg_resident.launches == 0, 'pcg_resident launched 0 times')
@@ -432,12 +501,27 @@ def main():
           f'48-72 atoms = {big_err:.3e} <= 1e-6')
 
     say('== 9. timing')
-    _, p_steps = pcg_stream(*p_args)
-    stream_ms = cuda_ms(lambda: pcg_stream(*p_args), reps=3)
-    stream_plain_ms = cuda_ms(lambda: pcg_stream_reference(*p_args), reps=2)
-    say(f'  one protein chunk of {p_chunk} pairs (CG steps mean '
-        f'{float(p_steps.float().mean()):.3f}, max {int(p_steps.max())}): '
-        f'pcg_stream {stream_ms:.4f} ms, plain twin {stream_plain_ms:.4f} ms')
+    stream_times = {}
+    for what, sys_args, reps in (('chunk', p_args, 3), ('lone', lone, 10)):
+        for ctas in (1, None, None, 1):
+            stream_times.setdefault((what, ctas), []).append(cuda_ms(
+                lambda: pcg_stream(*sys_args, ctas_per_pair=ctas), reps))
+        stream_times[what, 'plain'] = cuda_ms(
+            lambda: pcg_stream_reference(*sys_args), reps=2)
+        x_s, steps = pcg_stream(*sys_args)
+        used = pcg_stream.last_ctas_per_pair   # the default C
+        bound = pcg_bound(sys_args, x_s, steps)
+        stream_times[what, 'bound'] = bound
+        say(f'  {what} ({sys_args[0].shape[0]} pairs, CG steps '
+            f'{steps.tolist()}): pcg_stream C = 1 '
+            f'{stream_times[what, 1]} ms, C = {used} '
+            f'{stream_times[what, None]} ms (in turns), plain twin '
+            f'{stream_times[what, "plain"]:.4f} ms; bound {bound[0]:.4f} ms '
+            f'({bound[1]}), T streamed once a step {bound[2]:.4f} ms')
+    lone_ctas = used
+    stream_ms = float(np.mean(stream_times['chunk', None]))
+    stream_plain_ms = stream_times['chunk', 'plain']
+    stream_bound = stream_times['chunk', 'bound']
     args = systems(chunk)
     _, m_steps = pcg_stream(*args)
     mol_stream_ms = cuda_ms(lambda: pcg_stream(*args), reps=10)
@@ -456,6 +540,7 @@ def main():
     say(f'  normalized protein Gram build: median {wall * 1e3:.3f} ms over '
         f'{PROTEIN_REPEATS} ({", ".join(f"{w * 1e3:.3f}" for w in walls)});'
         f' {p_pairs / wall:.2f} pairs/s at the median')
+    profile_build(lambda: Normalization(pkernel)(proteins), 'protein')
 
     say('== 10. pcg_packed against its twin')
     build_report('pcg_packed')
@@ -586,13 +671,15 @@ def main():
 
     say('== 13. timing of the gradient path')
     t_args = tangent_groups(g_chunk)
-    _, t_steps = pcg_packed(*t_args)
+    x_k, t_steps = pcg_packed(*t_args)
+    packed_bound = pcg_bound(t_args, x_k, t_steps)
     packed_ms = cuda_ms(lambda: pcg_packed(*t_args), reps=10)
     packed_plain_ms = cuda_ms(lambda: pcg_packed_reference(*t_args), reps=3)
     say(f'  tangent groups of one gradient chunk ({g_chunk} pairs x 4, CG '
         f'steps mean {float(t_steps.float().mean()):.3f}, max '
         f'{int(t_steps.max())}): pcg_packed {packed_ms:.4f} ms, plain twin '
-        f'{packed_plain_ms:.4f} ms')
+        f'{packed_plain_ms:.4f} ms, bound {packed_bound[0]:.4f} ms '
+        f'({packed_bound[1]})')
     args = systems(chunk)
     _, p_steps = pcg_resident(*args)
     res_ms = cuda_ms(lambda: pcg_resident(*args), reps=20)
@@ -621,27 +708,39 @@ def main():
         say(f'  normalized {what} Gram build: median {wall * 1e3:.3f} ms '
             f'over {GRAD_REPEATS} ({", ".join(f"{w * 1e3:.3f}" for w in ws)})'
             f'; {n_pairs / wall:.1f} pairs/s at the median')
-    profile_gradient_build(lambda: Normalization(kernel)(
-        graphs, eval_gradient=True))
+    profile_build(lambda: Normalization(kernel)(
+        graphs, eval_gradient=True), 'gradient')
 
     say(json.dumps({'kernels': [{
         'name': 'pcg_resident', 'route': 'cuda',
         'source': 'graphdot_tpu_torch/csrc/pcg_resident.cu',
         'replaces': TPU_KERNEL, 'covers': TPU_PROTO_KERNEL,
         'launches': launches, 'max_abs_err': max_abs_err, 'ms': kernel_ms,
-        'plain_ms': plain_ms,
+        'plain_ms': plain_ms, 'bound_ms': resident_bound[0],
+        'bound_by': resident_bound[1], 'library_ms': None,
     }, {
         'name': 'pcg_stream', 'route': 'cuda',
         'source': 'graphdot_tpu_torch/csrc/pcg_stream.cu',
         'replaces': TPU_STREAM_KERNEL, 'launches': stream_launches,
         'max_abs_err': stream_err, 'ms': stream_ms,
-        'plain_ms': stream_plain_ms,
+        'plain_ms': stream_plain_ms, 'bound_ms': stream_bound[0],
+        'bound_by': stream_bound[1], 'library_ms': None,
+        'ctas_per_pair': stream_ctas, 'stream_floor_ms': stream_bound[2],
+        'ms_ctas_1': float(np.mean(stream_times['chunk', 1])),
+        'lone_pair': {
+            'ctas_per_pair': lone_ctas,
+            'ms': float(np.mean(stream_times['lone', None])),
+            'ms_ctas_1': float(np.mean(stream_times['lone', 1])),
+            'plain_ms': stream_times['lone', 'plain'],
+            'bound_ms': stream_times['lone', 'bound'][0],
+            'stream_floor_ms': stream_times['lone', 'bound'][2]},
     }, {
         'name': 'pcg_packed', 'route': 'cuda',
         'source': 'graphdot_tpu_torch/csrc/pcg_packed.cu',
         'replaces': TPU_PACK_KERNEL, 'launches': packed_launches,
         'max_abs_err': packed_err, 'ms': packed_ms,
-        'plain_ms': packed_plain_ms,
+        'plain_ms': packed_plain_ms, 'bound_ms': packed_bound[0],
+        'bound_by': packed_bound[1], 'library_ms': None,
     }]}))
     say(nvidia_smi())
     say(json.dumps({'ok': True, 'device': {

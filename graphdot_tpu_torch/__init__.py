@@ -1,9 +1,9 @@
 """GraphDot-TPU ported to PyTorch and CUDA for NVIDIA Hopper.
 
 A second package beside :mod:`graphdot_tpu`, which stays the reference.
-The host layer that loads no JAX (graphs, padded batches, synthetic data,
-hyperparameter trees) is imported from :mod:`graphdot_tpu`; everything that
-computes on tensors is torch, and the product-graph PCG solve runs in
+The port imports nothing of it: it carries its own copy of the host layer
+(graphs, padded batches, synthetic data, hyperparameter trees), everything
+that computes on tensors is torch, and the product-graph PCG solve runs in
 hand-written CUDA kernels on the card: ``csrc/pcg_resident.cu`` for pairs
 that fit a block's shared memory, ``csrc/pcg_stream.cu`` for larger ones,
 and ``csrc/pcg_packed.cu`` for the hyperparameter gradient's tangent

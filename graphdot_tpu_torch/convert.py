@@ -6,7 +6,7 @@ as ``flat_hyperparameters``, a numpy vector in the layout
 """
 import numpy as np
 
-from graphdot_tpu.util.iterable import flatten, fold_like
+from .util.iterable import flatten, fold_like
 
 
 def hyperparameters_from_numpy(kernel, flat_theta, bounds=None):

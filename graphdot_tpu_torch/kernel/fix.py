@@ -7,7 +7,7 @@ import copy
 
 import numpy as np
 
-from graphdot_tpu.util.pretty_tuple import pretty_tuple
+from ..util.pretty_tuple import pretty_tuple
 
 
 def _cosine(R, ldiag, rdiag):

@@ -17,8 +17,8 @@ import warnings
 import numpy as np
 import torch
 
-from graphdot_tpu.util.iterable import fold_like, flatten
-from graphdot_tpu.util.pretty_tuple import pretty_tuple
+from ...util.iterable import fold_like, flatten
+from ...util.pretty_tuple import pretty_tuple
 from ...graph import Graph, batch_graphs
 from ._backend import backend_factory, resolve_device
 from ._solver import cuda_solver, mlgk_solve, weight_by_p
@@ -68,14 +68,16 @@ class MarginalizedGraphKernel:
         'auto' is 'cuda' on a CUDA device and 'edge' on the CPU.
     buckets: solve jobs in per-size-class batches instead of padding every
         graph to the largest.
-    device: torch device (or its name) that every tensor follows. A CUDA
-        device without a usable card raises.
+    device: torch device (or its name) that every tensor follows; the
+        card (``'cuda'``) unless the caller asks for ``'cpu'``. A CUDA
+        device without a usable card raises: nothing falls back to the
+        CPU.
     """
 
     def __init__(self, node_kernel, edge_kernel, p=1.0, q=0.01,
                  q_bounds=(1e-4, 1 - 1e-4), eps=1e-2, ftol=1e-8, gtol=1e-6,
                  dtype=np.float64, backend='auto', buckets=False,
-                 device='cpu'):
+                 device='cuda'):
         self.buckets = buckets
         self.node_kernel = node_kernel
         self.edge_kernel = edge_kernel
@@ -243,8 +245,8 @@ class MarginalizedGraphKernel:
     def _chunk_size(self, n_pad, m_pad, eval_gradient=False, nodal=False):
         """Job-chunk size bounded by the solver's working-set memory
         (~256 MB of float32 per chunk; ~4 GB for pairs that run in
-        ``pcg_stream``, which solves one pair per SM, so that a chunk keeps
-        more of the card busy). Gradients carry one tangent system per
+        ``pcg_stream``, whose launch overhead and three grid barriers per
+        CG step are paid once a chunk). Gradients carry one tangent system per
         hyperparameter, and nodal gradients [chunk, n, n, n_dims] outputs,
         which scale the per-pair working set as in the JAX package."""
         budget = 1 << 26  # floats

@@ -9,7 +9,7 @@ from abc import ABC, abstractmethod
 
 import numpy as np
 
-from graphdot_tpu.util.pretty_tuple import pretty_tuple
+from ...util.pretty_tuple import pretty_tuple
 
 
 class StartingProbability(ABC):

@@ -22,7 +22,8 @@ class Tang2019MolecularKernel:
         Similarity floor between distinct chemical elements.
     edge_length_scale: float > 0
         Gaussian length scale on interatomic distances.
-    kwargs: forwarded to MarginalizedGraphKernel.
+    kwargs: forwarded to MarginalizedGraphKernel; ``device`` is the card
+        (``'cuda'``) unless given.
     """
 
     def __init__(self, stopping_probability=0.01, starting_probability=1.0,

@@ -19,8 +19,8 @@ from itertools import starmap
 import numpy as np
 import torch
 
-from graphdot_tpu.util.iterable import flatten
-from graphdot_tpu.util.pretty_tuple import pretty_tuple
+from ..util.iterable import flatten
+from ..util.pretty_tuple import pretty_tuple
 
 
 def _safe_div(num, den):

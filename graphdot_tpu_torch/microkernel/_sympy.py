@@ -12,7 +12,7 @@ import sympy as sy
 import torch
 from sympy.utilities.lambdify import lambdify
 
-from graphdot_tpu.util.pretty_tuple import pretty_tuple
+from ..util.pretty_tuple import pretty_tuple
 from ._base import MicroKernel
 
 #: sympy function name -> torch function; lambdify prints every name in a

@@ -3,7 +3,7 @@
 tensors unchanged."""
 import numpy as np
 
-from graphdot_tpu.util.pretty_tuple import pretty_tuple
+from ..util.pretty_tuple import pretty_tuple
 from ._base import MicroKernel
 
 _REDUCTIONS = {

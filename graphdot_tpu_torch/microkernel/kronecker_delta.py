@@ -2,7 +2,7 @@
 import numpy as np
 import torch
 
-from graphdot_tpu.util.pretty_tuple import pretty_tuple
+from ..util.pretty_tuple import pretty_tuple
 from ._base import MicroKernel
 
 

@@ -20,10 +20,11 @@ lists (``esrc``/``edst`` indices), not as one-hot matrices.
 - :func:`pcg_resident_reference` is the same function in plain torch:
   batched over pairs with done masks, the matvec by ``index_select`` and
   ``index_add_`` over the same edge lists.
-- :func:`pcg_stream` launches ``csrc/pcg_stream.cu`` on CUDA tensors (one
-  CTA per pair, T streamed from device memory in tiles, the CG vectors in
-  a device workspace), for pairs beyond a block's shared memory. Given CPU
-  tensors it runs :func:`pcg_stream_reference`.
+- :func:`pcg_stream` launches ``csrc/pcg_stream.cu`` on CUDA tensors (a
+  cooperative grid with C CTAs per pair, each streaming its share of T
+  from device memory in tiles, the CG vectors in a device workspace), for
+  pairs beyond a block's shared memory. Given CPU tensors it runs
+  :func:`pcg_stream_reference`.
 - :func:`pcg_stream_reference` is its plain twin, the same function as
   :func:`pcg_resident_reference`.
 - :func:`pcg_packed` launches ``csrc/pcg_packed.cu`` on CUDA tensors: one
@@ -321,11 +322,14 @@ def _stream_library():
     """The built streaming-kernel library, with its C signatures."""
     lib = _build.load('pcg_stream')
     ptr, cint, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-    lib.graphdot_pcg_stream.argtypes = [ptr] * 12 + [cint] * 7 + [ptr]
+    lib.graphdot_pcg_stream.argtypes = [ptr] * 12 + [cint] * 9 + [ptr]
     lib.graphdot_pcg_stream.restype = cint
     lib.graphdot_pcg_stream_smem_bytes.argtypes = [cint] * 5
     lib.graphdot_pcg_stream_smem_bytes.restype = size
-    lib.graphdot_pcg_stream_workspace_bytes.argtypes = [cint] * 5
+    lib.graphdot_pcg_stream_grid.argtypes = [cint] * 5 + [
+        ctypes.POINTER(cint)]
+    lib.graphdot_pcg_stream_grid.restype = cint
+    lib.graphdot_pcg_stream_workspace_bytes.argtypes = [cint] * 6
     lib.graphdot_pcg_stream_workspace_bytes.restype = size
     lib.graphdot_cuda_error_string.argtypes = [cint]
     lib.graphdot_cuda_error_string.restype = ctypes.c_char_p
@@ -453,8 +457,33 @@ def pcg_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
 pcg_resident.launches = 0
 
 
+def stream_ctas_per_pair(P, N1, grid):
+    """The CTAs :func:`pcg_stream` gives each of P pairs by default: the
+    cooperative grid of ``grid`` CTAs shared out, ``floor(grid / P)``, at
+    least 1 (more pairs than the grid run in several launches) and at
+    most N1 (a CTA owns at least one side-1 node)."""
+    return max(1, min(grid // max(P, 1), N1))
+
+
+def stream_grid(M1, M2, N1, N2, device):
+    """The most CTAs of :func:`pcg_stream`'s solve that the CUDA ``device``
+    holds at once, for pairs of these shapes: its cooperative grid."""
+    lib = _stream_library()
+    limit = _smem_limit(device)
+    if not lib.graphdot_pcg_stream_smem_bytes(M1, M2, N1, N2, limit):
+        raise ValueError(
+            f'no tile of the streaming kernel fits {limit} bytes of shared '
+            f'memory for a pair with M1={M1}, M2={M2}, N1={N1}, N2={N2}')
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(_device_index(device)):
+        err = lib.graphdot_pcg_stream_grid(M1, M2, N1, N2, limit,
+                                           ctypes.byref(grid))
+    _raise_on(lib, err, 'pcg_stream grid size')
+    return grid.value
+
+
 def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
-               maxiter):
+               maxiter, ctas_per_pair=None):
     """Solve a batch of product-graph systems with the streaming CUDA PCG.
 
     Arguments and results as :func:`pcg_resident`. The kernel keeps T in
@@ -464,14 +493,27 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
     vectors and the sorted edge lists, about T's size again) with
     ``torch.empty``.
 
+    The solve is one cooperative grid of G CTAs (:func:`stream_grid`, one
+    an SM at protein shapes), C of them on each pair; ``ctas_per_pair``
+    None takes C from :func:`stream_ctas_per_pair`, an int forces it
+    (1 <= C <= G). More pairs than G // C run in several launches. The C
+    used is kept in ``pcg_stream.last_ctas_per_pair``.
+
     CUDA tensors launch the kernel on the current stream and add one to
-    ``pcg_stream.launches``; CPU tensors run :func:`pcg_stream_reference`.
-    Raises when no tile shape fits a block's shared memory (side 2 beyond
-    about 9,800 nodes), for more than 65535 pairs (the grid's second
-    dimension), or when a launch fails.
+    ``pcg_stream.launches`` a call; CPU tensors run
+    :func:`pcg_stream_reference`. Raises when no tile shape fits a block's
+    shared memory (side 2 beyond about 9,800 nodes), for more than 65535
+    pairs (the preprocessing grids' second dimension), for a C outside
+    [1, G], or when a launch fails; a refused cooperative launch is not
+    retried.
     """
     P, M1, M2, N1, N2 = _check(T, esrc1, edst1, esrc2, edst2, diag,
                                precond, b, tol, maxiter)
+    if ctas_per_pair is not None and (
+            not isinstance(ctas_per_pair, int) or ctas_per_pair < 1):
+        raise ValueError(
+            f'ctas_per_pair must be None or a positive int: '
+            f'{ctas_per_pair!r}')
     if T.device.type == 'cpu':
         return pcg_stream_reference(T, esrc1, edst1, esrc2, edst2, diag,
                                     precond, b, tol, maxiter)
@@ -483,10 +525,13 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
     lib = _stream_library()
     device = _device_index(T.device)
     limit = _smem_limit(T.device)
-    if not lib.graphdot_pcg_stream_smem_bytes(M1, M2, N1, N2, limit):
+    grid = stream_grid(M1, M2, N1, N2, T.device)
+    C = stream_ctas_per_pair(P, N1, grid) if ctas_per_pair is None \
+        else ctas_per_pair
+    if C > grid:
         raise ValueError(
-            f'no tile of the streaming kernel fits {limit} bytes of shared '
-            f'memory for a pair with M1={M1}, M2={M2}, N1={N1}, N2={N2}')
+            f'ctas_per_pair={C} exceeds the {grid} CTAs of a cooperative '
+            'grid on this device')
     x = torch.empty_like(b)
     iters = torch.empty(P, dtype=torch.int32, device=T.device)
     if P == 0:
@@ -494,7 +539,7 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
     # freed when this returns: the caching allocator hands it out again
     # only to work queued after the launch on the same stream
     work = torch.empty(
-        lib.graphdot_pcg_stream_workspace_bytes(P, M1, M2, N1, N2),
+        lib.graphdot_pcg_stream_workspace_bytes(P, M1, M2, N1, N2, grid),
         dtype=torch.uint8, device=T.device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -503,14 +548,17 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
             esrc2.data_ptr(), edst2.data_ptr(), diag.data_ptr(),
             precond.data_ptr(), b.data_ptr(), tol.data_ptr(),
             x.data_ptr(), iters.data_ptr(), work.data_ptr(),
-            P, M1, M2, N1, N2, maxiter, limit, stream)
+            P, M1, M2, N1, N2, maxiter, C, grid, limit, stream)
     _raise_on(lib, err, 'pcg_stream launch')
     pcg_stream.launches += 1
+    pcg_stream.last_ctas_per_pair = C
     return x, iters
 
 
 #: kernel launches made by :func:`pcg_stream` in this process
 pcg_stream.launches = 0
+#: CTAs a pair of the last CUDA call of :func:`pcg_stream`
+pcg_stream.last_ctas_per_pair = None
 
 
 def pcg_packed(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,

@@ -22,7 +22,7 @@ from graphdot_tpu_torch.microkernel import (  # noqa: E402
     KroneckerDelta, SquareExponential, TensorProduct)
 from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
     group_pairs, pcg_packed, pcg_packed_reference, pcg_resident,
-    pcg_resident_reference, pcg_stream, pcg_stream_reference)
+    pcg_resident_reference, pcg_stream, pcg_stream_reference, stream_grid)
 from graphdot_tpu_torch.testing import (  # noqa: E402
     protein_niche_set, random_molecule_set)
 
@@ -184,6 +184,140 @@ def test_stream_kernel_stop_rules(card):
     x, iters = pcg_stream(*args)
     torch.cuda.synchronize()
     assert not x.any() and not iters.any()
+
+
+@pytest.fixture(scope='module')
+def protein_chunk():
+    """(operands, twin's x) of the 21 pairs of the 6 contact-map proteins
+    of ``bench_protein.py`` (n = 272, m = 3736): the protein Gram's chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU: the CUDA kernel runs only there')
+    card = torch.device('cuda')
+    kernel = MarginalizedGraphKernel(
+        TensorProduct(element=KroneckerDelta(0.2)),
+        TensorProduct(length=SquareExponential(3.0),
+                      ctype=KroneckerDelta(0.3)),
+        q=0.05, device=card)
+    batch, bd, _ = kernel._prepare_batch(protein_niche_set(13, 6, (180, 280)))
+    i, j = np.triu_indices(6)
+    s = mlgk_setup(kernel._theta_vector(),
+                   kernel._operands(bd, bd, torch.as_tensor(i, device=card),
+                                    torch.as_tensor(j, device=card)),
+                   knode=kernel.node_kernel, kedge=kernel.edge_kernel,
+                   n_p_theta=1, mode='cuda')
+    args = (s['T'], s['esrc_1'], s['edst_1'], s['esrc_2'], s['edst_2'],
+            s['diag'].contiguous(), s['precond'].contiguous(),
+            s['b'].contiguous(), s['tol'],
+            kernel.maxiter(batch.node_mask.shape[1]))
+    return args, pcg_stream_reference(*args)[0]
+
+
+def _close(x, x_ref):
+    assert bool(torch.isfinite(x).all())
+    err = float((x - x_ref).abs().max())
+    assert err <= 1e-5 * float(x_ref.abs().max()), err
+
+
+@pytest.mark.parametrize('ctas', [1, 2, 7, None])
+def test_stream_split_matches_twin(protein_chunk, ctas):
+    """The 21-pair protein chunk with each pair over C CTAs (None: the
+    default, floor(G / 21))."""
+    args, x_ref = protein_chunk
+    before = pcg_stream.launches
+    x, _ = pcg_stream(*args, ctas_per_pair=ctas)
+    torch.cuda.synchronize()
+    assert pcg_stream.launches == before + 1
+    if ctas is None:
+        assert pcg_stream.last_ctas_per_pair > 1
+    else:
+        assert pcg_stream.last_ctas_per_pair == ctas
+    _close(x, x_ref)
+
+
+def test_stream_split_lone_pair(protein_chunk):
+    """One protein pair spread over up to the whole grid."""
+    args, x_ref = protein_chunk
+    one = [a[1:2] for a in args[:-1]] + [args[-1]]
+    x, _ = pcg_stream(*one)
+    torch.cuda.synchronize()
+    assert pcg_stream.last_ctas_per_pair > 21
+    _close(x, x_ref[1:2])
+
+
+def test_stream_split_repeats_bitwise(protein_chunk):
+    args, _ = protein_chunk
+    for ctas in (7, None):
+        x1, it1 = pcg_stream(*args, ctas_per_pair=ctas)
+        x2, it2 = pcg_stream(*args, ctas_per_pair=ctas)
+        torch.cuda.synchronize()
+        assert torch.equal(x1, x2) and torch.equal(it1, it2)
+
+
+def test_stream_split_more_ctas_than_nodes(card):
+    """2 molecule pairs forced to C = 24, more CTAs than side-1 nodes with
+    live edges: CTAs with empty ranges meet the barriers and add zeros."""
+    full = _systems(card, (5, 9), (20, 24))
+    args = [a[:2] for a in full[:-1]] + [full[-1]]
+    x, iters = pcg_stream(*args, ctas_per_pair=24)
+    x_ref, iters_ref = pcg_stream_reference(*args)
+    torch.cuda.synchronize()
+    _close(x, x_ref)
+    assert int((iters - iters_ref).abs().max()) <= 1
+
+
+def test_stream_split_stop_rules(card):
+    """A zero right-hand side takes 0 steps, and the maxiter stop holds,
+    inside pairs split over 7 CTAs."""
+    args = list(_niche_systems(card))
+    b = args[7]
+    args[7] = torch.zeros_like(b)
+    x, iters = pcg_stream(*args, ctas_per_pair=7)
+    torch.cuda.synchronize()
+    assert not x.any() and not iters.any()
+    args[7] = b
+    args[8] = torch.zeros_like(args[8])     # tol = 0: runs maxiter steps
+    x, iters = pcg_stream(*args[:-1], 3, ctas_per_pair=7)
+    x_ref, _ = pcg_stream_reference(*args[:-1], 3)
+    torch.cuda.synchronize()
+    assert bool(torch.all(iters == 3))
+    _close(x, x_ref)
+
+
+def test_stream_split_more_pairs_than_grid(card):
+    """The 528 pairs of 32 molecules of 48-72 atoms (beyond a block's
+    shared memory): more pairs than the grid holds, so several
+    cooperative launches of one CTA a pair, counted as one call."""
+    kernel = _kernel(card)
+    batch, bd, _ = kernel._prepare_batch(
+        random_molecule_set(7, 32, n_atoms_range=(48, 72)))
+    i, j = np.triu_indices(32)
+    s = mlgk_setup(kernel._theta_vector(),
+                   kernel._operands(bd, bd, torch.as_tensor(i, device=card),
+                                    torch.as_tensor(j, device=card)),
+                   knode=kernel.node_kernel, kedge=kernel.edge_kernel,
+                   n_p_theta=1, mode='cuda')
+    args = (s['T'], s['esrc_1'], s['edst_1'], s['esrc_2'], s['edst_2'],
+            s['diag'].contiguous(), s['precond'].contiguous(),
+            s['b'].contiguous(), s['tol'],
+            kernel.maxiter(batch.node_mask.shape[1]))
+    M, N = args[0].shape[1], args[5].shape[1]
+    assert stream_grid(M, M, N, N, card) < len(i)
+    before = pcg_stream.launches
+    x, iters = pcg_stream(*args)
+    torch.cuda.synchronize()
+    assert pcg_stream.launches == before + 1
+    assert pcg_stream.last_ctas_per_pair == 1
+    x_ref, iters_ref = pcg_stream_reference(*args)
+    _close(x, x_ref)
+    assert int((iters - iters_ref).abs().max()) <= 1
+
+
+def test_stream_split_beyond_grid_raises(card):
+    args = _niche_systems(card)
+    M, N = args[0].shape[1], args[5].shape[1]
+    grid = stream_grid(M, M, N, N, card)
+    with pytest.raises(ValueError, match='cooperative grid'):
+        pcg_stream(*args, ctas_per_pair=grid + 1)
 
 
 def test_stream_no_pairs_launches_nothing(card):

@@ -100,7 +100,7 @@ def port_kernel(jk, backend, **kwargs):
     tk = MarginalizedGraphKernel(
         tmk.TensorProduct(element=tmk.KroneckerDelta(0.2)),
         tmk.TensorProduct(length=tmk.SquareExponential(0.3)),
-        backend=backend, **kwargs)
+        backend=backend, device='cpu', **kwargs)
     return hyperparameters_from_numpy(tk, jk.flat_hyperparameters,
                                       bounds=jk.hyperparameter_bounds)
 
@@ -210,10 +210,12 @@ def test_cuda_route_on_cpu_packs_tangents():
     route's plain twin and launches nothing."""
     before = pcg_packed.launches
     G = molecules()[:3]
-    k = MarginalizedGraphKernel(**slice_kernels(tmk, backend='cuda'))
+    k = MarginalizedGraphKernel(
+        **slice_kernels(tmk, backend='cuda', device='cpu'))
     _, dK_cuda = k(G, eval_gradient=True)
     _, dK_edge = MarginalizedGraphKernel(
-        **slice_kernels(tmk, backend='edge'))(G, eval_gradient=True)
+        **slice_kernels(tmk, backend='edge', device='cpu'))(
+            G, eval_gradient=True)
     np.testing.assert_allclose(dK_cuda, dK_edge, **DK_TOL)
     assert pcg_packed.launches == before
 
@@ -232,7 +234,7 @@ def test_adhoc_starting_probability_gradient():
     tk = MarginalizedGraphKernel(
         tmk.TensorProduct(element=tmk.KroneckerDelta(0.3)),
         tmk.TensorProduct(length=tmk.SquareExponential(0.5)),
-        p=Adhoc(p, 'p'), q=0.1, backend='cuda')
+        p=Adhoc(p, 'p'), q=0.1, backend='cuda', device='cpu')
     K_want, dK_want = jk(G, eval_gradient=True)
     K, dK = tk(G, eval_gradient=True)
     np.testing.assert_allclose(K, K_want, **K_TOL)
@@ -328,7 +330,7 @@ def test_constructor_signature_matches_jax():
     assert [p.default for p in port_params[:-1]] == \
         [p.default for p in jax_params]
     assert port_params[-1].name == 'device'
-    assert port_params[-1].default == 'cpu'
+    assert port_params[-1].default == 'cuda'
 
 
 def test_positional_call_sets_tolerances_alike():
@@ -343,7 +345,7 @@ def test_positional_call_sets_tolerances_alike():
         assert getattr(tk, name) == getattr(jk, name), name
     assert tk.backend.mode == jk.backend.mode
     assert (tk.ftol, tk.gtol, tk.eps) == (3e-9, 4e-7, 0.02)
-    tang = Tang2019MolecularKernel(gtol=2e-7, eps=0.5)
+    tang = Tang2019MolecularKernel(gtol=2e-7, eps=0.5, device='cpu')
     assert (tang.kernel.gtol, tang.kernel.eps) == (2e-7, 0.5)
 
 
@@ -365,7 +367,8 @@ def test_reference_fixture_is_current():
 @pytest.mark.parametrize('backend', ['cuda', 'edge'])
 def test_port_matches_reference_fixture(backend):
     ref = np.load(FIXTURE)
-    tk = MarginalizedGraphKernel(**slice_kernels(tmk, backend=backend))
+    tk = MarginalizedGraphKernel(
+        **slice_kernels(tmk, backend=backend, device='cpu'))
     hyperparameters_from_numpy(tk, ref['theta'])
     K, dK = Normalization(tk)(slice_graphs(), eval_gradient=True)
     np.testing.assert_allclose(K, ref['K'], rtol=0, atol=1e-6)

@@ -94,7 +94,7 @@ def port_kernel(jk, backend, **kwargs):
     tk = MarginalizedGraphKernel(
         tmk.TensorProduct(element=tmk.KroneckerDelta(0.2)),
         tmk.TensorProduct(length=tmk.SquareExponential(0.3)),
-        backend=backend, **kwargs)
+        backend=backend, device='cpu', **kwargs)
     return hyperparameters_from_numpy(tk, jk.flat_hyperparameters,
                                       bounds=jk.hyperparameter_bounds)
 
@@ -159,7 +159,7 @@ def test_tang2019_matches_jax():
     jk = JaxTang2019(stopping_probability=0.05, edge_length_scale=0.3,
                      backend='pallas')
     tk = Tang2019MolecularKernel(stopping_probability=0.05,
-                                 edge_length_scale=0.3)
+                                 edge_length_scale=0.3, device='cpu')
     np.testing.assert_allclose(tk.theta, jk.theta, rtol=0, atol=0)
     np.testing.assert_allclose(tk.bounds, jk.bounds, rtol=0, atol=0)
     np.testing.assert_allclose(tk(G), jk(G), rtol=1e-5, atol=1e-7)
@@ -180,7 +180,8 @@ def test_port_matches_reference_fixture(backend):
     ref = np.load(FIXTURE)
     graphs = random_molecule_set(
         SLICE_SEED, SLICE_GRAPHS, n_atoms_range=(9, 24))[:FIXTURE_GRAPHS]
-    tk = MarginalizedGraphKernel(**slice_kernels(tmk, backend=backend))
+    tk = MarginalizedGraphKernel(**slice_kernels(tmk, backend=backend,
+                                                device='cpu'))
     hyperparameters_from_numpy(tk, ref['theta'])
     K = Normalization(tk)(graphs)
     np.testing.assert_allclose(K, ref['K'], rtol=0, atol=1e-6)
@@ -263,7 +264,7 @@ def test_matches_oracle(case, backend):
     G = c['graphs']
     for q in [0.01, 0.05, 0.1, 0.5]:
         k = MarginalizedGraphKernel(c['knode'], c['kedge'], q=q,
-                                    backend=backend)
+                                    backend=backend, device='cpu')
         R = k(G)
         assert R.shape == (len(G), len(G))
         np.testing.assert_allclose(R, R.T, rtol=0, atol=0)
@@ -310,7 +311,7 @@ def test_eval_gradient_not_ported():
     """The gradient is ported now: every entry point returns it (values
     held against JAX in ``test_torch_gradient.py``)."""
     G = molecules()[:2]
-    k = MarginalizedGraphKernel(**slice_kernels(tmk))
+    k = MarginalizedGraphKernel(**slice_kernels(tmk, device='cpu'))
     n_theta = len(k.theta)
     K, dK = k(G, eval_gradient=True)
     assert K.shape == (2, 2) and dK.shape == (2, 2, n_theta)
@@ -329,11 +330,12 @@ def test_cuda_device_without_card_raises(monkeypatch):
 
 
 def test_backend_resolution():
-    k = MarginalizedGraphKernel(**slice_kernels(tmk))
+    k = MarginalizedGraphKernel(**slice_kernels(tmk, device='cpu'))
     assert k.device == torch.device('cpu')
     assert k.backend.mode == 'edge'
     with pytest.raises(ValueError):
-        MarginalizedGraphKernel(**slice_kernels(tmk, backend='pallas'))
+        MarginalizedGraphKernel(**slice_kernels(tmk, backend='pallas',
+                                                device='cpu'))
 
 
 def test_cuda_backend_on_cpu_runs_plain_twin():
@@ -341,8 +343,10 @@ def test_cuda_backend_on_cpu_runs_plain_twin():
     launches nothing."""
     before = pcg_resident.launches
     G = molecules()[:3]
-    R_cuda = MarginalizedGraphKernel(**slice_kernels(tmk, backend='cuda'))(G)
-    R_edge = MarginalizedGraphKernel(**slice_kernels(tmk, backend='edge'))(G)
+    R_cuda = MarginalizedGraphKernel(
+        **slice_kernels(tmk, backend='cuda', device='cpu'))(G)
+    R_edge = MarginalizedGraphKernel(
+        **slice_kernels(tmk, backend='edge', device='cpu'))(G)
     np.testing.assert_allclose(R_cuda, R_edge, rtol=1e-6, atol=0)
     assert pcg_resident.launches == before
 
@@ -355,7 +359,7 @@ def test_theta_protocol_matches_jax():
     tk = MarginalizedGraphKernel(
         tmk.TensorProduct(element=tmk.KroneckerDelta(0.3, h_bounds='fixed')),
         tmk.TensorProduct(length=tmk.SquareExponential(0.5)),
-        p=1.5, q=0.1)
+        p=1.5, q=0.1, device='cpu')
     np.testing.assert_array_equal(tk.theta, jk.theta)
     np.testing.assert_array_equal(tk.bounds, jk.bounds)
     np.testing.assert_array_equal(tk.active_theta_mask, jk.active_theta_mask)

@@ -212,7 +212,7 @@ def tangent_systems():
     kernel = MarginalizedGraphKernel(
         TensorProduct(element=KroneckerDelta(0.2)),
         TensorProduct(length=SquareExponential(0.3)), q=0.05,
-        backend='cuda')
+        backend='cuda', device='cpu')
     batch, bd, _ = kernel._prepare_batch(graphs)
     i, j = np.triu_indices(len(graphs))
     ops = kernel._operands(bd, bd, torch.as_tensor(i), torch.as_tensor(j))

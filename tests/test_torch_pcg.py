@@ -33,7 +33,7 @@ def molecule_systems():
     kernel = MarginalizedGraphKernel(
         TensorProduct(element=KroneckerDelta(0.2)),
         TensorProduct(length=SquareExponential(0.3)), q=0.05,
-        backend='cuda')
+        backend='cuda', device='cpu')
     batch, bd, _ = kernel._prepare_batch(graphs)
     i, j = np.triu_indices(len(graphs))
     s = mlgk_setup(kernel._theta_vector(),

@@ -37,7 +37,7 @@ from graphdot_tpu_torch.kernel import (  # noqa: E402
 from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
     cuda_solver, mlgk_setup)
 from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
-    pcg_resident, pcg_stream, pcg_stream_reference)
+    pcg_resident, pcg_stream, pcg_stream_reference, stream_ctas_per_pair)
 from graphdot_tpu_torch.testing import protein_niche_set  # noqa: E402
 
 from test_torch_pcg import _bad_args  # noqa: E402
@@ -76,7 +76,8 @@ def molecule_systems(case):
     with 3 of 20-24 atoms (M1 != M2, N1 != N2)."""
     kernel = MarginalizedGraphKernel(
         tmk.TensorProduct(element=tmk.KroneckerDelta(0.2)),
-        tmk.TensorProduct(length=tmk.SquareExponential(0.3)), q=0.05)
+        tmk.TensorProduct(length=tmk.SquareExponential(0.3)), q=0.05,
+        device='cpu')
     mols = random_molecule_set(5, 5, n_atoms_range=(8, 14))
     _, bd1, _ = kernel._prepare_batch(mols)
     if case == 'square':
@@ -133,6 +134,36 @@ def test_wrapper_on_cpu_runs_reference():
     assert pcg_stream.launches == before
 
 
+@pytest.mark.parametrize('ctas', [1, 4, None])
+def test_wrapper_on_cpu_takes_ctas_per_pair(ctas):
+    """The split is the kernel's layout: the twin's result is the same at
+    every C, and the wrapper's CPU path launches nothing."""
+    args, maxiter = molecule_systems('rectangular')
+    x, iters = pcg_stream(*args, maxiter, ctas_per_pair=ctas)
+    x_ref, iters_ref = pcg_stream_reference(*args, maxiter)
+    assert torch.equal(x, x_ref) and torch.equal(iters, iters_ref)
+
+
+@pytest.mark.parametrize('ctas', [0, -2, 1.5, '3'])
+def test_wrapper_rejects_bad_ctas_per_pair(ctas):
+    args, maxiter = molecule_systems('square')
+    with pytest.raises(ValueError, match='ctas_per_pair'):
+        pcg_stream(*args, maxiter, ctas_per_pair=ctas)
+
+
+@pytest.mark.parametrize('P,N1,grid,want', [
+    (21, 272, 132, 6),      # the protein Gram's chunk: 6 CTAs a pair
+    (1, 272, 132, 132),     # a lone protein pair takes the whole grid
+    (1, 88, 132, 88),       # ... but no more CTAs than side-1 nodes
+    (3, 88, 132, 44),
+    (132, 272, 132, 1),
+    (496, 72, 132, 1),      # more pairs than the grid: several launches
+    (0, 16, 132, 16),
+])
+def test_stream_ctas_per_pair(P, N1, grid, want):
+    assert stream_ctas_per_pair(P, N1, grid) == want
+
+
 def test_route_on_cpu_is_the_plain_solver():
     """Off the card both kernels' wrappers run the same plain function;
     the route takes pcg_resident's and launches nothing."""
@@ -182,7 +213,7 @@ def test_gram_matches_jax_stream(monkeypatch, backend):
         MarginalizedGraphKernel(
             tmk.TensorProduct(element=tmk.KroneckerDelta(0.2)),
             tmk.TensorProduct(length=tmk.SquareExponential(0.3)),
-            backend=backend),
+            backend=backend, device='cpu'),
         jk.flat_hyperparameters, bounds=jk.hyperparameter_bounds)
     np.testing.assert_allclose(tk(mols), jk(mols), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(Normalization(tk)(mols),
@@ -251,7 +282,8 @@ def test_port_matches_protein_fixture(backend):
     ref = np.load(FIXTURE)
     graphs = protein_niche_set(int(ref['seed']), int(ref['n_graphs']),
                                tuple(ref['residues']))
-    tk = MarginalizedGraphKernel(**niche_kernels(tmk, backend=backend))
+    tk = MarginalizedGraphKernel(
+        **niche_kernels(tmk, backend=backend, device='cpu'))
     hyperparameters_from_numpy(tk, ref['theta'])
     K = Normalization(tk)(graphs)
     np.testing.assert_allclose(K, ref['K'], rtol=0, atol=1e-6)
