@@ -33,8 +33,11 @@ and checks every part of them:
    and ``pcg_stream`` never; within 1e-6 of the same Gram with
    ``backend='edge'`` and of the JAX package's reference Gram stored in
    ``tests/fixtures/torch_port_gram_ref.npz``;
-5. timings with CUDA events: ``pcg_resident`` and its twin at the molecule
-   chunk shape, and the wall time of a whole molecule Gram build;
+5. timings: ``pcg_resident`` and its twin at the molecule chunk shape,
+   the wrapper call by CUDA events beside the kernel's own device time
+   (``torch.profiler`` over the same calls), with the chunk's live-edge
+   and live-node means and the kernel's occupancy; and the wall time of a
+   whole molecule Gram build;
 6. ``pcg_stream``'s build, and the kernel against its twin on the systems
    of the first protein chunk and on a lone protein pair, each pair split
    over the default C CTAs (``stream_ctas_per_pair``) and over one, two
@@ -49,7 +52,10 @@ and checks every part of them:
    ``tests/fixtures/torch_port_protein_ref.npz`` (pairs of 5.2 MB of T)
    runs in ``pcg_stream`` and is within 1e-6 of the JAX Gram; 32 molecules
    of 48-72 atoms (n = 72, m = 192, over 227 KB a pair) run in
-   ``pcg_stream`` and are within 1e-6 of ``backend='edge'``;
+   ``pcg_stream`` and are within 1e-6 of ``backend='edge'``; 32 molecules
+   of 48-55 atoms (n = 56, the most product nodes a block of
+   ``pcg_resident`` holds) run in ``pcg_resident``, and 32 of 56-63 atoms
+   (n = 64) in ``pcg_stream``, both within 1e-6 of ``backend='edge'``;
 9. timings with CUDA events, in turns (C = 1, default, default, C = 1):
    ``pcg_stream`` on one protein chunk and on a lone protein pair, beside
    the twin on both; ``pcg_stream`` and ``pcg_resident`` on one molecule
@@ -69,18 +75,22 @@ and checks every part of them:
     ``tests/fixtures/torch_port_grad_ref.npz``; central differences in
     log theta (step 1e-3) within rtol 0.05, atol 0.05;
 12. the gradient of the 32 molecules of 48-72 atoms: tangents in
-    ``pcg_stream``, ``pcg_packed`` never; dK within phase 11's tolerance
-    of ``edge``;
-13. timings with CUDA events: ``pcg_packed`` and its twin on one gradient
-    chunk's tangent groups; ``pcg_packed`` on pair groups (k = 2 and 4)
+    ``pcg_stream``, ``pcg_packed`` never; of the 48-55-atom ones: value
+    and tangents (one a CTA) in ``pcg_resident`` only; dK within phase
+    11's tolerance of ``edge`` for both;
+13. timings: ``pcg_packed`` and its twin on one gradient chunk's tangent
+    groups, by CUDA events and by device time, with live means and
+    occupancy; ``pcg_packed`` on pair groups
+    (k = 2 and 4)
     against ``pcg_resident`` on one 4096-pair chunk, with the CG steps of
     groups and of pairs; the gradient Gram's wall time beside the value
     Gram's (medians of 5, in turns); one profiled gradient build
     (``torch.profiler``): device busy share, device time by kernel, host
     time in the solver's phases.
 
-Prints the kernel summary as one JSON line (each kernel's time beside its
-bound: the larger of the bytes of its inputs and outputs over 3.35 TB/s
+Prints the kernel summary as one JSON line (each kernel's wrapper time
+and device time beside its bound: the larger of the bytes of its inputs
+and outputs over 3.35 TB/s
 and the float32 operations of the CG steps it ran, over the live edges,
 over 67 TFLOP/s), then the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Exits
@@ -89,6 +99,7 @@ device. Usage: ``python3 chip_smoke.py`` from the root of the checkout.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -151,6 +162,75 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps, match):
+    """Mean device milliseconds a call of ``fn`` spends in the kernels
+    whose name contains ``match``, from ``torch.profiler``'s
+    ``key_averages()`` over ``reps`` calls after one warm-up call; None
+    when the profiler records no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for avg in prof.key_averages():
+        if match in avg.key:
+            us += getattr(avg, 'device_time_total', 0.0) or \
+                getattr(avg, 'cuda_time_total', 0.0)
+    return us / reps / 1e3 if us else None
+
+
+def live_report(args, members=1):
+    """The live-edge and live-node means of a chunk's systems (the part of
+    each system that pcg_resident and pcg_packed solve), as a dict and a
+    line of text."""
+    from graphdot_tpu_torch.ops.pcg import live_extent
+    T, e1s, e1d, e2s, e2d, b = (args[0], *args[1:5], args[7])
+    if T.dim() == 4:   # [S, ka, ...]: the first operator of each group
+        T, e1s, e1d, e2s, e2d = (a[:, 0] for a in (T, e1s, e1d, e2s, e2d))
+    L1, L2, n1, n2 = (v.double() for v in live_extent(
+        T, e1s, e1d, e2s, e2d, b))
+    live = {'live_edges_1': float(L1.mean()),
+            'live_edges_2': float(L2.mean()),
+            'live_nodes': float((n1 * n2).mean()),
+            'padded_edges': T.shape[-2],
+            'padded_nodes': b.shape[-2] * b.shape[-1]}
+    return live, (f'live edges a side mean {live["live_edges_1"]:.2f} / '
+                  f'{live["live_edges_2"]:.2f} of {T.shape[-2]}, live product '
+                  f'nodes mean {live["live_nodes"]:.2f} of '
+                  f'{live["padded_nodes"]}')
+
+
+def time_call(call, reps, match):
+    """The wrapper's call by CUDA events and its kernel's device time, in
+    turns (events, device, events, device); returns {'ms': mean,
+    'device_ms': mean, 'runs': [(ms, device_ms), ...]}."""
+    runs = [(cuda_ms(call, reps), device_ms(call, reps, match))
+            for _ in range(2)]
+    devs = [d for _, d in runs if d is not None]
+    return {'ms': float(np.mean([m for m, _ in runs])),
+            'device_ms': float(np.mean(devs)) if devs else None,
+            'runs': runs}
+
+
+def step_split(wrapper, args, match, steps=(10, 20)):
+    """Device milliseconds of the wrapper's kernel at maxiter 0 (its
+    prologue: edge lists, live flags, CSR, T gathered, x written) and at a
+    fixed number of CG steps (tol 0), and the cost of one more step."""
+    import torch
+    fixed = list(args[:9])
+    fixed[8] = torch.zeros_like(fixed[8])
+    at = {s: device_ms(lambda: wrapper(*fixed, s), 10, match)
+          for s in (0, *steps)}
+    return {'prologue_ms': at[0], 'steps': {s: at[s] for s in steps},
+            'per_step_ms': (at[steps[1]] - at[steps[0]])
+            / (steps[1] - steps[0])}
 
 
 def live_edges(T):
@@ -246,8 +326,9 @@ def main():
         KroneckerDelta, SquareExponential, TensorProduct)
     from graphdot_tpu_torch.ops import _build
     from graphdot_tpu_torch.ops.pcg import (
-        group_pairs, pcg_packed, pcg_packed_reference, pcg_resident,
-        pcg_resident_reference, pcg_stream, pcg_stream_reference)
+        group_pairs, kernel_occupancy, pcg_packed, pcg_packed_reference,
+        pcg_resident, pcg_resident_reference, pcg_stream,
+        pcg_stream_reference)
     from graphdot_tpu_torch.testing import (
         protein_niche_set, random_molecule_set)
 
@@ -259,12 +340,31 @@ def main():
         f'{torch.cuda.device_count()} device(s)')
 
     def build_report(name):
+        """nvcc's time and, per kernel, ptxas's registers and spills, one
+        line each (instances of the core: K members, NPT nodes a thread,
+        shared operator or not)."""
         info = _build.build_info(name)
         say(f'  {name}: nvcc {info["seconds"]:.2f} s')
+        entry = spill = None
         for line in info['log'].splitlines():
-            if 'registers' in line or 'bytes stack' in line or \
-                    'Compiling entry' in line:
-                say('    ' + line.strip())
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                entry = found.group(1)
+                packed = re.search(
+                    r'pcg_packed_kernelILi(\d+)ELi(\d+)ELb(\d)', entry)
+                resident = re.search(r'pcg_resident_kernelILi(\d+)E', entry)
+                if packed:
+                    entry = 'pcg_packed_kernel<K={}, NPT={}, shared={}>' \
+                        .format(*packed.groups())
+                elif resident:
+                    entry = 'pcg_resident_kernel<NPT={}>'.format(
+                        *resident.groups())
+            elif 'bytes stack frame' in line:
+                spill = line.split(':', 1)[-1].strip()
+            elif 'Used' in line and 'registers' in line and entry:
+                used = line.split(':', 1)[-1].strip()
+                say(f'    {entry[:60]}: {used}; {spill}')
+                entry = spill = None
 
     say('== 2. kernel build')
     t0 = time.perf_counter()
@@ -373,12 +473,24 @@ def main():
     args = systems(chunk)
     x_k, steps = pcg_resident(*args)
     resident_bound = pcg_bound(args, x_k, steps)
-    kernel_ms = cuda_ms(lambda: pcg_resident(*args), reps=20)
+    resident_live, text = live_report(args)
+    say(f'  one chunk of {chunk} pairs: {text}')
+    resident_occ = kernel_occupancy('pcg_resident', m_pad, m_pad, n_pad,
+                                    n_pad)
+    say(f'  pcg_resident occupancy at the chunk shape: {resident_occ}')
+    resident_times = time_call(lambda: pcg_resident(*args), 20,
+                               'pcg_resident_kernel')
+    kernel_ms = resident_times['ms']
+    resident_device_ms = resident_times['device_ms']
     plain_ms = cuda_ms(lambda: pcg_resident_reference(*args), reps=5)
     say(f'  one chunk of {chunk} pairs (CG steps mean '
         f'{float(steps.float().mean()):.3f}, max {int(steps.max())}): '
-        f'kernel {kernel_ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound '
+        f'kernel {kernel_ms:.4f} ms by events, device {resident_device_ms} '
+        f'ms, plain twin {plain_ms:.4f} ms, bound '
         f'{resident_bound[0]:.4f} ms ({resident_bound[1]})')
+    say(f'    in turns (events, device): {resident_times["runs"]}')
+    resident_split = step_split(pcg_resident, args, 'pcg_resident_kernel')
+    say(f'  device time by part: {resident_split}')
     walls = []
     for _ in range(BUILD_REPEATS):
         t0 = time.perf_counter()
@@ -499,6 +611,21 @@ def main():
                     .max())
     check(big_err <= 1e-6, f'max |K_cuda - K_edge| over 32 molecules of '
           f'48-72 atoms = {big_err:.3e} <= 1e-6')
+    large = {}
+    for atoms, solver in (((48, 56), pcg_resident), ((56, 64), pcg_stream)):
+        large[atoms] = random_molecule_set(7, 32, n_atoms_range=atoms)
+        lbatch, _, _ = kernel._prepare_batch(large[atoms])
+        ln = lbatch.node_mask.shape[1]
+        pcg_resident.launches = pcg_stream.launches = 0
+        KL = Normalization(make_kernel())(large[atoms])
+        check(solver.launches >= 1 and pcg_resident.launches
+              + pcg_stream.launches == solver.launches,
+              f'{atoms[0]}-{atoms[1] - 1}-atom molecules (n = {ln}, m = '
+              f'{lbatch.esrc.shape[1]}): {solver.__name__} launched '
+              f'{solver.launches} times, the other 0')
+        err = float(np.abs(KL - Normalization(make_kernel('edge'))(
+            large[atoms])).max())
+        check(err <= 1e-6, f'max |K_cuda - K_edge| = {err:.3e} <= 1e-6')
 
     say('== 9. timing')
     stream_times = {}
@@ -520,6 +647,9 @@ def main():
             f'({bound[1]}), T streamed once a step {bound[2]:.4f} ms')
     lone_ctas = used
     stream_ms = float(np.mean(stream_times['chunk', None]))
+    stream_device_ms = device_ms(lambda: pcg_stream(*p_args), 3, 'stream')
+    say(f'  chunk at C = {pcg_stream.last_ctas_per_pair}: device time of '
+        f'the call\'s kernels {stream_device_ms} ms')
     stream_plain_ms = stream_times['chunk', 'plain']
     stream_bound = stream_times['chunk', 'bound']
     args = systems(chunk)
@@ -668,18 +798,45 @@ def main():
     err = float(np.abs(dKB - dKB_edge).max())
     check(bool(np.isfinite(dKB).all()) and err <= tol,
           f'max |dK_cuda - dK_edge| = {err:.3e} <= {tol:.3e}')
+    pcg_resident.launches = pcg_stream.launches = pcg_packed.launches = 0
+    _, dKL = Normalization(make_kernel())(large[48, 56], eval_gradient=True)
+    check(pcg_resident.launches >= 2 and pcg_packed.launches == 0
+          and pcg_stream.launches == 0,
+          f'48-55-atom molecules: pcg_resident launched '
+          f'{pcg_resident.launches} times (value solves and tangents one a '
+          'CTA), pcg_packed and pcg_stream 0')
+    _, dKL_edge = Normalization(make_kernel('edge'))(
+        large[48, 56], eval_gradient=True)
+    tol = 1e-3 * float(np.abs(dKL_edge).max()) + 1e-5
+    err = float(np.abs(dKL - dKL_edge).max())
+    check(bool(np.isfinite(dKL).all()) and err <= tol,
+          f'max |dK_cuda - dK_edge| = {err:.3e} <= {tol:.3e}')
 
     say('== 13. timing of the gradient path')
     t_args = tangent_groups(g_chunk)
     x_k, t_steps = pcg_packed(*t_args)
     packed_bound = pcg_bound(t_args, x_k, t_steps)
-    packed_ms = cuda_ms(lambda: pcg_packed(*t_args), reps=10)
+    packed_live, text = live_report(t_args)
+    say(f'  tangent groups of one gradient chunk: {text}')
+    k_t = t_args[7].shape[1]
+    packed_occ = kernel_occupancy('pcg_packed', m_pad, m_pad, n_pad, n_pad,
+                                  k=k_t, ka=1)
+    say(f'  pcg_packed occupancy (k = {k_t}, shared operator): '
+        f'{packed_occ}')
+    packed_times = time_call(lambda: pcg_packed(*t_args), 10,
+                             'pcg_packed_kernel')
+    packed_ms = packed_times['ms']
+    packed_device_ms = packed_times['device_ms']
     packed_plain_ms = cuda_ms(lambda: pcg_packed_reference(*t_args), reps=3)
     say(f'  tangent groups of one gradient chunk ({g_chunk} pairs x 4, CG '
         f'steps mean {float(t_steps.float().mean()):.3f}, max '
-        f'{int(t_steps.max())}): pcg_packed {packed_ms:.4f} ms, plain twin '
+        f'{int(t_steps.max())}): pcg_packed {packed_ms:.4f} ms by events, '
+        f'device {packed_device_ms} ms, plain twin '
         f'{packed_plain_ms:.4f} ms, bound {packed_bound[0]:.4f} ms '
         f'({packed_bound[1]})')
+    say(f'    in turns (events, device): {packed_times["runs"]}')
+    packed_split = step_split(pcg_packed, t_args, 'pcg_packed_kernel')
+    say(f'  device time by part: {packed_split}')
     args = systems(chunk)
     _, p_steps = pcg_resident(*args)
     res_ms = cuda_ms(lambda: pcg_resident(*args), reps=20)
@@ -716,14 +873,18 @@ def main():
         'source': 'graphdot_tpu_torch/csrc/pcg_resident.cu',
         'replaces': TPU_KERNEL, 'covers': TPU_PROTO_KERNEL,
         'launches': launches, 'max_abs_err': max_abs_err, 'ms': kernel_ms,
+        'device_ms': resident_device_ms,
         'plain_ms': plain_ms, 'bound_ms': resident_bound[0],
         'bound_by': resident_bound[1], 'library_ms': None,
+        'occupancy': resident_occ, 'live': resident_live,
+        'split': resident_split,
     }, {
         'name': 'pcg_stream', 'route': 'cuda',
         'source': 'graphdot_tpu_torch/csrc/pcg_stream.cu',
         'replaces': TPU_STREAM_KERNEL, 'launches': stream_launches,
         'max_abs_err': stream_err, 'ms': stream_ms,
-        'plain_ms': stream_plain_ms, 'bound_ms': stream_bound[0],
+        'device_ms': stream_device_ms, 'plain_ms': stream_plain_ms,
+        'bound_ms': stream_bound[0],
         'bound_by': stream_bound[1], 'library_ms': None,
         'ctas_per_pair': stream_ctas, 'stream_floor_ms': stream_bound[2],
         'ms_ctas_1': float(np.mean(stream_times['chunk', 1])),
@@ -739,8 +900,11 @@ def main():
         'source': 'graphdot_tpu_torch/csrc/pcg_packed.cu',
         'replaces': TPU_PACK_KERNEL, 'launches': packed_launches,
         'max_abs_err': packed_err, 'ms': packed_ms,
+        'device_ms': packed_device_ms,
         'plain_ms': packed_plain_ms, 'bound_ms': packed_bound[0],
         'bound_by': packed_bound[1], 'library_ms': None,
+        'occupancy': packed_occ, 'live': packed_live,
+        'split': packed_split,
     }]}))
     say(nvidia_smi())
     say(json.dumps({'ok': True, 'device': {

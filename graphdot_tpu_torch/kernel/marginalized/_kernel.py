@@ -13,10 +13,12 @@ d K / d theta on the linear scale.
 import copy
 import numbers
 import warnings
+from collections import namedtuple
 
 import numpy as np
 import torch
 
+from ...util import Timer
 from ...util.iterable import fold_like, flatten
 from ...util.pretty_tuple import pretty_tuple
 from ...graph import Graph, batch_graphs
@@ -73,6 +75,15 @@ class MarginalizedGraphKernel:
         device without a usable card raises: nothing falls back to the
         CPU.
     """
+
+    trait_t = namedtuple(
+        'Traits', 'diagonal, symmetric, nodal, lmin, eval_gradient'
+    )
+
+    @classmethod
+    def traits(cls, diagonal=False, symmetric=False, nodal=False, lmin=0,
+               eval_gradient=False):
+        return cls.trait_t(diagonal, symmetric, nodal, lmin, eval_gradient)
 
     def __init__(self, node_kernel, edge_kernel, p=1.0, q=0.01,
                  q_bounds=(1e-4, 1 - 1e-4), eps=1e-2, ftol=1e-8, gtol=1e-6,
@@ -381,7 +392,8 @@ class MarginalizedGraphKernel:
     # public API
     # ------------------------------------------------------------------
 
-    def __call__(self, X, Y=None, eval_gradient=False, nodal=False, lmin=0):
+    def __call__(self, X, Y=None, eval_gradient=False, nodal=False, lmin=0,
+                 timing=False):
         """Compute the pairwise similarity matrix between graphs.
 
         Parameters
@@ -392,14 +404,18 @@ class MarginalizedGraphKernel:
             active hyperparameters only).
         nodal: if True, return node-wise similarities.
         lmin: 0 or 1 — number of steps to skip in each random walk path.
+        timing: if True, print the wall time of each phase (generating
+            jobs, solving pair jobs, collecting result), in ms.
 
         Returns
         -------
         kernel_matrix: ndarray; plus the gradient ndarray if eval_gradient.
         """
+        timer = Timer()
         all_graphs = list(X) + (list(Y) if Y is not None else [])
         self._check_types(all_graphs)
 
+        timer.tic('generating jobs')
         symmetric = Y is None
         if symmetric:
             i, j = np.triu_indices(len(X))
@@ -408,15 +424,25 @@ class MarginalizedGraphKernel:
             j = j + len(X)
         i = i.ravel()
         j = j.ravel()
+        timer.toc('generating jobs')
 
+        timer.tic('solving pair jobs')
         result = self._solve_jobs(all_graphs, i, j, nodal=bool(nodal),
                                   lmin=lmin, eval_gradient=eval_gradient)
+        timer.toc('solving pair jobs')
+
+        timer.tic('collecting result')
         raw, raw_grad = result if eval_gradient else (result, None)
         sizes = np.array([len(g.nodes) for g in all_graphs])
         gramian, gradient = self._assemble(
             raw, raw_grad, i, j, sizes, len(X),
             len(Y) if Y is not None else None, nodal
         )
+        timer.toc('collecting result')
+
+        if timing:
+            timer.report(unit='ms')
+        timer.reset()
         if eval_gradient:
             return (gramian.astype(self.element_dtype),
                     gradient[:, :, self.active_theta_mask].astype(
@@ -473,7 +499,7 @@ class MarginalizedGraphKernel:
         return R, dR
 
     def diag(self, X, eval_gradient=False, nodal=False, lmin=0,
-             active_theta_only=True):
+             active_theta_only=True, timing=False):
         """Compute the self-similarities of a list of graphs.
 
         nodal=False -> [N] graph self-similarities; nodal=True -> vector of
@@ -481,15 +507,22 @@ class MarginalizedGraphKernel:
         similarity matrices. With ``eval_gradient``, also their gradients
         in the hyperparameters (linear scale; active ones only when
         ``active_theta_only``, except for ``'block'``, as in the JAX
-        class).
+        class). ``timing``: print the wall time of solving the pair jobs,
+        in ms.
         """
+        timer = Timer()
         self._check_types(X)
         if nodal not in (True, False, 'block'):
             raise ValueError("Invalid 'nodal' option '%s'" % nodal)
 
         i = np.arange(len(X))
+        timer.tic('solving pair jobs')
         result = self._solve_jobs(list(X), i, i, nodal=bool(nodal),
                                   lmin=lmin, eval_gradient=eval_gradient)
+        timer.toc('solving pair jobs')
+        if timing:
+            timer.report(unit='ms')
+        timer.reset()
         raw, raw_grad = result if eval_gradient else (result, None)
         sizes = np.array([len(g.nodes) for g in X])
         grad = raw_grad

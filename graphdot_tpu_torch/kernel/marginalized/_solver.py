@@ -27,7 +27,7 @@ import functools
 import torch
 
 from ...ops.pcg import (gather_offdiag, largest_packed_k, pcg, pcg_packed,
-                        pcg_resident, pcg_stream, resident_smem)
+                        pcg_resident, pcg_stream, resident_fits)
 
 # ---------------------------------------------------------------------------
 # feature pytree helpers
@@ -103,8 +103,9 @@ def _apply_on_features(kernel, theta, X, Y):
 
 def cuda_solver(M1, M2, N1, N2, device):
     """The kernel that mode ``'cuda'`` solves a chunk of pairs of these
-    shapes with: :func:`pcg_resident` when one pair fits the shared memory
-    a block can get on the CUDA ``device``, else :func:`pcg_stream`.
+    shapes with: :func:`pcg_resident` when one pair fits a block on the
+    CUDA ``device`` (its shared memory, and the registers of the CG state
+    of its product nodes: :func:`resident_fits`), else :func:`pcg_stream`.
 
     This is the counterpart of ``graphdot_tpu/ops/pallas_pcg.py:379-388``
     with the TPU's 48 MB VMEM limit replaced by the card's limit per
@@ -113,8 +114,9 @@ def cuda_solver(M1, M2, N1, N2, device):
     :func:`pcg_resident` is returned."""
     if torch.device(device).type != 'cuda':
         return pcg_resident
-    smem, limit = resident_smem(M1, M2, N1, N2, torch.device(device))
-    return pcg_resident if smem <= limit else pcg_stream
+    if resident_fits(M1, M2, N1, N2, torch.device(device)):
+        return pcg_resident
+    return pcg_stream
 
 
 def _packed_tangents(group, T, esrc1, edst1, esrc2, edst2, diag, precond,
@@ -169,9 +171,15 @@ def cuda_tangent_solver(k, M1, M2, N1, N2, device):
     iters)``:
 
     - the k systems of a pair as one group of :func:`pcg_packed` sharing
-      the pair's operator, when such a group fits the shared memory a
-      block can get on the CUDA ``device``;
-    - else groups of the largest size that fits;
+      the pair's operator, when such a group runs in one block on the
+      CUDA ``device`` (:func:`largest_packed_k`: at most
+      ``PACKED_MAX_K`` = 4 members, and within the block's shared memory
+      and registers);
+    - else the fewest groups whose size fits, as even as they can be (k =
+      6 with a largest fit of 4 runs as two groups of 3); groups of one
+      member launch :func:`pcg_resident`'s kernel (pairs of more than
+      2048 product nodes, where two members' CG state exceeds a block's
+      registers);
     - :func:`pcg_stream` over P * k systems when a single pair does not
       fit a block (as :func:`cuda_solver` routes its value solve).
 
@@ -181,12 +189,12 @@ def cuda_tangent_solver(k, M1, M2, N1, N2, device):
     device = torch.device(device)
     if device.type != 'cuda':
         return functools.partial(_packed_tangents, k)
-    smem, limit = resident_smem(M1, M2, N1, N2, device)
     group = largest_packed_k(k, M1, M2, N1, N2, device, shared=True) \
-        if smem <= limit else 0
+        if resident_fits(M1, M2, N1, N2, device) else 0
     if group == 0:
         return _stream_tangents
-    return functools.partial(_packed_tangents, group)
+    n_groups = -(-k // group)
+    return functools.partial(_packed_tangents, -(-k // n_groups))
 
 
 def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode):

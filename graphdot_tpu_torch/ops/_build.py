@@ -3,14 +3,17 @@ loads them with ``ctypes``.
 
 Each source compiles on its own into a shared library with a plain C
 interface, under ``build/graphdot_tpu_torch/`` at the root of the checkout;
-the file name carries a hash of the source and the flags, so an edited
-source builds anew and an unchanged one is reused. :func:`build` starts
+the file name carries a hash of the source, of every ``csrc/`` header it
+includes (``#include "name.cuh"``, followed into headers too) and of the
+flags, so an edited source or header builds anew and an unchanged one is
+reused. :func:`build` starts
 one ``nvcc`` a source, all at once, for the sources of :data:`KERNELS`. A
 failed build raises.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,6 +25,8 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / \
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+    # the template instances of csrc/pcg_block.cuh optimize in parallel
+    '--split-compile=0',
 )
 
 #: the kernel sources in ``csrc/``, by name
@@ -49,16 +54,32 @@ def nvcc_path():
         'kernels of graphdot_tpu_torch are built from source at first use')
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src):
+    """``src`` and the ``csrc/`` files it includes with quotes, directly or
+    through other headers, each once, in the order first met."""
+    found = [src]
+    for path in found:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = _CSRC / inc.decode()
+            if dep not in found:
+                found.append(dep)
+    return found
+
+
 def _target(name):
     """(source path, nvcc, library path) of ``csrc/<name>.cu``."""
     if name not in KERNELS:
         raise ValueError(f'unknown kernel source {name!r}; one of {KERNELS}')
     src = _CSRC / f'{name}.cu'
     nvcc = nvcc_path()
-    key = hashlib.sha256(
-        src.read_bytes() + '\0'.join((nvcc,) + NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return src, nvcc, _BUILD_DIR / f'{name}-{key}.so'
+    digest = hashlib.sha256()
+    for path in _sources(src):
+        digest.update(path.name.encode() + b'\0' + path.read_bytes())
+    digest.update('\0'.join((nvcc,) + NVCC_FLAGS).encode())
+    return src, nvcc, _BUILD_DIR / f'{name}-{digest.hexdigest()[:16]}.so'
 
 
 def build(*names):

@@ -14,9 +14,10 @@ after ``maxiter`` steps. The incidence matrices S and D are given as edge
 lists (``esrc``/``edst`` indices), not as one-hot matrices.
 
 - :func:`pcg_resident` launches ``csrc/pcg_resident.cu`` on CUDA tensors
-  (one CTA per pair, all CG state in shared memory). Given CPU tensors it
-  runs :func:`pcg_resident_reference` instead; it never falls back from the
-  card to anything else.
+  (one CTA per pair over the pair's live edges, each thread's product
+  nodes' CG state in registers: the core in ``csrc/pcg_block.cuh``).
+  Given CPU tensors it runs :func:`pcg_resident_reference` instead; it
+  never falls back from the card to anything else.
 - :func:`pcg_resident_reference` is the same function in plain torch:
   batched over pairs with done masks, the matvec by ``index_select`` and
   ``index_add_`` over the same edge lists.
@@ -31,8 +32,16 @@ lists (``esrc``/``edst`` indices), not as one-hot matrices.
   CTA per group of k systems that run ONE PCG on their union, with the dot
   products summed over the members and shared step sizes, stopping at the
   group's tolerance. The members share one operator (the tangent systems
-  of a pair) or have one each (groups of pairs, :func:`group_pairs`).
-  Given CPU tensors it runs :func:`pcg_packed_reference`.
+  of a pair, in lockstep) or have one each (groups of pairs,
+  :func:`group_pairs`); at most :data:`PACKED_MAX_K` a group. A group of
+  one member runs in ``csrc/pcg_resident.cu``, as the TPU's ``k == 1``
+  branch runs ``pallas_pcg``. Given CPU tensors it runs
+  :func:`pcg_packed_reference`.
+
+:func:`pcg_resident` and :func:`pcg_packed` run on blocks of 256 threads;
+a thread owns up to 13 product nodes (one member) or fewer (larger
+groups), as many as its CG state's registers allow (:func:`resident_fits`,
+:func:`packed_fits`).
 """
 import ctypes
 import functools
@@ -40,6 +49,10 @@ import functools
 import torch
 
 from . import _build
+
+#: the largest group :func:`pcg_packed` solves in one CTA
+#: (``kMaxMembers`` of ``csrc/pcg_block.cuh``)
+PACKED_MAX_K = 4
 
 
 def pcg(matvec, b, precond, tol, maxiter, return_iters=False):
@@ -115,6 +128,36 @@ def gather_offdiag(T, esrc1, edst1, esrc2, edst2, Y):
     out = torch.zeros(P * N1, N2, dtype=Y.dtype, device=Y.device)
     out.index_add_(0, src1, U)
     return out.view(P, N1, N2)
+
+
+def live_extent(T, esrc1, edst1, esrc2, edst2, b):
+    """The part of each system that ``csrc/pcg_block.cuh`` solves, in plain
+    torch: ``(L1, L2, n1, n2)``, each [P].
+
+    T [P, M1, M2]; esrc1/edst1 [P, M1]; esrc2/edst2 [P, M2]; b [P, ...,
+    N1, N2] (the members' right-hand sides between). An edge is live when
+    its row (side 1) or column (side 2) of T holds a nonzero; L1 and L2
+    count them. Side 1's extent n1 is 1 + the largest node that ends a
+    live edge or holds a nonzero b in its row (0 when there is none), n2
+    likewise by columns. Every product node (i1, i2) with i1 >= n1 or
+    i2 >= n2 has no live edge and b = 0 there, so its x is exactly 0."""
+    P, N1, N2 = b.shape[0], b.shape[-2], b.shape[-1]
+    nz = T != 0
+    live1, live2 = nz.any(dim=2), nz.any(dim=1)
+    bnz = (b != 0).reshape(P, -1, N1, N2).any(dim=1)
+
+    def highest(mask, index):
+        return torch.where(mask, index, -1).amax(dim=1) if mask.shape[1] \
+            else torch.full((P,), -1, device=mask.device)
+
+    def side(live, src, dst, rows, n):
+        ends = torch.maximum(src, dst).long()
+        index = torch.arange(n, device=rows.device).expand(P, n)
+        return torch.maximum(highest(live, ends), highest(rows, index)) + 1
+
+    return (live1.sum(dim=1), live2.sum(dim=1),
+            side(live1, esrc1, edst1, bnz.any(dim=2), N1),
+            side(live2, esrc2, edst2, bnz.any(dim=1), N2))
 
 
 def _validate(operands, device, maxiter, index_lists):
@@ -312,6 +355,11 @@ def _library():
     lib.graphdot_pcg_resident_smem_limit.argtypes = [
         cint, ctypes.POINTER(cint)]
     lib.graphdot_pcg_resident_smem_limit.restype = cint
+    lib.graphdot_pcg_resident_nodes_per_thread.argtypes = [cint] * 2
+    lib.graphdot_pcg_resident_nodes_per_thread.restype = cint
+    lib.graphdot_pcg_resident_occupancy.argtypes = [cint] * 4 + [
+        ctypes.POINTER(cint)]
+    lib.graphdot_pcg_resident_occupancy.restype = cint
     lib.graphdot_cuda_error_string.argtypes = [cint]
     lib.graphdot_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -345,6 +393,11 @@ def _packed_library():
     lib.graphdot_pcg_packed.restype = cint
     lib.graphdot_pcg_packed_smem_bytes.argtypes = [cint] * 6
     lib.graphdot_pcg_packed_smem_bytes.restype = ctypes.c_size_t
+    lib.graphdot_pcg_packed_nodes_per_thread.argtypes = [cint] * 4
+    lib.graphdot_pcg_packed_nodes_per_thread.restype = cint
+    lib.graphdot_pcg_packed_occupancy.argtypes = [cint] * 6 + [
+        ctypes.POINTER(cint)]
+    lib.graphdot_pcg_packed_occupancy.restype = cint
     lib.graphdot_cuda_error_string.argtypes = [cint]
     lib.graphdot_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -378,24 +431,72 @@ def resident_smem(M1, M2, N1, N2, device):
             _smem_limit(device))
 
 
+def resident_fits(M1, M2, N1, N2, device):
+    """Whether one pair of these shapes runs in :func:`pcg_resident` on the
+    CUDA ``device``: its operator fits a block's shared memory, and its
+    N1 * N2 product nodes the registers of a block (at most 13 nodes a
+    thread, 3328 in all)."""
+    smem, limit = resident_smem(M1, M2, N1, N2, device)
+    return smem <= limit and \
+        _library().graphdot_pcg_resident_nodes_per_thread(N1, N2) > 0
+
+
 def packed_smem(k, M1, M2, N1, N2, device, shared=False):
     """(bytes of shared memory :func:`pcg_packed` needs for a group of k
     members of these shapes, bytes a block can opt into on the CUDA
     ``device``). ``shared``: the members share one operator (T, edges,
-    diag and precond given once a group)."""
+    diag and precond given once a group). One member is
+    :func:`pcg_resident`'s problem (:func:`resident_smem`)."""
+    if k == 1:
+        return resident_smem(M1, M2, N1, N2, device)
     nbytes = _packed_library().graphdot_pcg_packed_smem_bytes(
         k, 1 if shared else k, M1, M2, N1, N2)
     return nbytes, _smem_limit(device)
 
 
+def packed_fits(k, M1, M2, N1, N2, device, shared=False):
+    """Whether a group of k members of these shapes runs in
+    :func:`pcg_packed` on the CUDA ``device``: k <= :data:`PACKED_MAX_K`,
+    the group fits a block's shared memory, and its members' CG state the
+    registers of a block ((3 k + 2) floats a product node, and at most 3
+    nodes a thread unless ``shared``). One member runs where
+    :func:`resident_fits` says."""
+    if k == 1:
+        return resident_fits(M1, M2, N1, N2, device)
+    nbytes, limit = packed_smem(k, M1, M2, N1, N2, device, shared)
+    return nbytes <= limit and \
+        _packed_library().graphdot_pcg_packed_nodes_per_thread(
+            k, 1 if shared else k, N1, N2) > 0
+
+
 def largest_packed_k(k, M1, M2, N1, N2, device, shared=False):
-    """The largest group size up to ``k`` whose group fits a block's shared
-    memory on the CUDA ``device``; 0 when not even one member fits."""
-    for g in range(k, 0, -1):
-        nbytes, limit = packed_smem(g, M1, M2, N1, N2, device, shared)
-        if nbytes <= limit:
+    """The largest group size up to ``k`` (and :data:`PACKED_MAX_K`) whose
+    group runs in :func:`pcg_packed` on the CUDA ``device``
+    (:func:`packed_fits`); 0 when not even one member fits."""
+    for g in range(min(k, PACKED_MAX_K), 0, -1):
+        if packed_fits(g, M1, M2, N1, N2, device, shared):
             return g
     return 0
+
+
+def kernel_occupancy(name, M1, M2, N1, N2, k=1, ka=1):
+    """What the CUDA instance of :func:`pcg_resident` or :func:`pcg_packed`
+    (``name``; k >= 2) for these shapes gets on the current device:
+    {'ctas_per_sm', 'registers', 'spill_bytes', 'smem_bytes'}
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and
+    ``cudaFuncGetAttributes``, at 256 threads a block)."""
+    out = (ctypes.c_int * 4)()
+    if name == 'pcg_resident':
+        lib = _library()
+        err = lib.graphdot_pcg_resident_occupancy(M1, M2, N1, N2, out)
+    elif name == 'pcg_packed':
+        lib = _packed_library()
+        err = lib.graphdot_pcg_packed_occupancy(k, ka, M1, M2, N1, N2, out)
+    else:
+        raise ValueError(f'no occupancy query for {name!r}')
+    _raise_on(lib, err, f'{name} occupancy')
+    return dict(zip(('ctas_per_sm', 'registers', 'spill_bytes',
+                     'smem_bytes'), out))
 
 
 def pcg_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
@@ -418,8 +519,10 @@ def pcg_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
 
     CUDA tensors launch the kernel on the current stream and add one to
     ``pcg_resident.launches``; CPU tensors run
-    :func:`pcg_resident_reference`. Raises when a pair's working set
-    exceeds the shared memory a block can get, or when the launch fails.
+    :func:`pcg_resident_reference`. Raises when a pair's operator exceeds
+    the shared memory a block can get, when its product nodes exceed what
+    a block holds in registers (:func:`resident_fits`), or when the launch
+    fails.
     """
     P, M1, M2, N1, N2 = _check(T, esrc1, edst1, esrc2, edst2, diag,
                                precond, b, tol, maxiter)
@@ -428,19 +531,33 @@ def pcg_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
                                       precond, b, tol, maxiter)
     if T.device.type != 'cuda':
         raise ValueError(f'pcg_resident runs on CUDA or CPU, not {T.device}')
+    return _launch_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
+                            tol, maxiter)
+
+
+def _launch_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+                     maxiter):
+    """Launch ``csrc/pcg_resident.cu`` on checked CUDA operands
+    ([P, M1, M2] T and so on) and count the launch."""
+    P, M1, M2 = T.shape
+    N1, N2 = diag.shape[1:]
     lib = _library()
-    device = _device_index(T.device)
     smem, limit = resident_smem(M1, M2, N1, N2, T.device)
     if smem > limit:
         raise ValueError(
             f'a pair with M1={M1}, M2={M2}, N1={N1}, N2={N2} needs {smem} '
             f'bytes of shared memory; a block can have {limit}. '
             'Such pairs run in pcg_stream.')
+    if not lib.graphdot_pcg_resident_nodes_per_thread(N1, N2):
+        raise ValueError(
+            f'a pair of N1={N1} x N2={N2} product nodes exceeds the 3328 '
+            '(13 a thread) that a block holds in registers. Such pairs run '
+            'in pcg_stream.')
     x = torch.empty_like(b)
     iters = torch.empty(P, dtype=torch.int32, device=T.device)
     if P == 0:
         return x, iters
-    with torch.cuda.device(device):
+    with torch.cuda.device(_device_index(T.device)):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.graphdot_pcg_resident(
             T.data_ptr(), esrc1.data_ptr(), edst1.data_ptr(),
@@ -453,7 +570,8 @@ def pcg_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
     return x, iters
 
 
-#: kernel launches made by :func:`pcg_resident` in this process
+#: kernel launches of ``csrc/pcg_resident.cu`` in this process (by
+#: :func:`pcg_resident`, and by :func:`pcg_packed` for one-member groups)
 pcg_resident.launches = 0
 
 
@@ -583,9 +701,13 @@ def pcg_packed(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
     (x [S, k, N1, N2] float32, iters [S] int32)
 
     CUDA tensors launch the kernel on the current stream and add one to
-    ``pcg_packed.launches``; CPU tensors run :func:`pcg_packed_reference`.
-    Raises when a group exceeds the shared memory a block can get, naming
-    the largest k that fits, or when the launch fails.
+    ``pcg_packed.launches``; groups of one member (k = 1) launch
+    ``csrc/pcg_resident.cu`` instead, the same problem, and add one to
+    ``pcg_resident.launches``. CPU tensors run
+    :func:`pcg_packed_reference`. Raises when a group does not run in one
+    block (:func:`packed_fits`: k above :data:`PACKED_MAX_K`, the shared
+    memory a block can get, or the registers of its members' CG state),
+    naming the largest k that fits, or when the launch fails.
     """
     S, k, ka, M1, M2, N1, N2 = _check_packed(
         T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter)
@@ -594,22 +716,30 @@ def pcg_packed(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
                                     precond, b, tol, maxiter)
     if T.device.type != 'cuda':
         raise ValueError(f'pcg_packed runs on CUDA or CPU, not {T.device}')
+    if k == 1:
+        # [S, 1, ...] is [S, ...] in memory: pcg_resident's operands
+        x, iters = _launch_resident(
+            *(a[:, 0] for a in (T, esrc1, edst1, esrc2, edst2, diag,
+                                precond, b)), tol, maxiter)
+        return x[:, None], iters
     lib = _packed_library()
-    device = _device_index(T.device)
-    shared = ka == 1 and k > 1
-    smem, limit = packed_smem(k, M1, M2, N1, N2, T.device, shared)
-    if smem > limit:
+    shared = ka == 1
+    if not packed_fits(k, M1, M2, N1, N2, T.device, shared):
+        smem, limit = packed_smem(k, M1, M2, N1, N2, T.device, shared)
         fits = largest_packed_k(k, M1, M2, N1, N2, T.device, shared)
         raise ValueError(
             f'a group of k={k} members with M1={M1}, M2={M2}, N1={N1}, '
             f'N2={N2} ({"one shared" if shared else "one a member"} '
-            f'operator) needs {smem} bytes of shared memory; a block can '
-            f'have {limit}. The largest k that fits is {fits}.')
+            f'operator) does not run in one block: it needs {smem} bytes '
+            f'of shared memory (a block can have {limit}), at most '
+            f'{PACKED_MAX_K} members, and (3 k + 2) floats of registers '
+            f'for each of its N1 * N2 product nodes. The largest k that '
+            f'fits is {fits}.')
     x = torch.empty_like(b)
     iters = torch.empty(S, dtype=torch.int32, device=T.device)
     if S == 0:
         return x, iters
-    with torch.cuda.device(device):
+    with torch.cuda.device(_device_index(T.device)):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.graphdot_pcg_packed(
             T.data_ptr(), esrc1.data_ptr(), edst1.data_ptr(),

@@ -8,6 +8,12 @@ This file imports no JAX, so on a machine without it run
 
 Tolerance: max |x_kernel - x_twin| <= 1e-5 max |x| (both float32 CG to
 ftol * N; the kernels sum in a fixed order, the twins with index_add_).
+
+``pcg_resident`` and ``pcg_packed`` solve over the live edges and the live
+node extent only (``csrc/pcg_block.cuh``); the cases below include batches
+padded far beyond their graphs, an isolated highest-index node with
+b != 0, live edges whose T is exactly 0, every group size, and pairs up
+to the 3328 product nodes (13 a thread) that a block holds.
 """
 import numpy as np
 import pytest
@@ -20,9 +26,12 @@ from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
     cuda_solver, mlgk_setup)
 from graphdot_tpu_torch.microkernel import (  # noqa: E402
     KroneckerDelta, SquareExponential, TensorProduct)
+from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
+    cuda_tangent_solver, mlgk_tangents)
 from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
-    group_pairs, pcg_packed, pcg_packed_reference, pcg_resident,
-    pcg_resident_reference, pcg_stream, pcg_stream_reference, stream_grid)
+    PACKED_MAX_K, group_pairs, largest_packed_k, live_extent, pcg_packed,
+    pcg_packed_reference, pcg_resident, pcg_resident_reference, pcg_stream,
+    pcg_stream_reference, stream_grid)
 from graphdot_tpu_torch.testing import (  # noqa: E402
     protein_niche_set, random_molecule_set)
 
@@ -62,11 +71,62 @@ def _systems(device, atoms1, atoms2):
             s['b'].contiguous(), s['tol'], kernel.maxiter(n_pad))
 
 
+def _padded(args, N, M):
+    """The systems of ``args`` padded to N nodes and M edges a side, as a
+    batch with larger graphs pads them: T 0, edges 0 -> 0, diag and
+    precond 1, b 0 on the padding."""
+    T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter = args
+    P, M1, M2 = T.shape
+    N1, N2 = diag.shape[1:]
+    Tp = T.new_zeros(P, M, M)
+    Tp[:, :M1, :M2] = T
+
+    def edges(e):
+        out = e.new_zeros(P, M)
+        out[:, :e.shape[1]] = e
+        return out
+
+    def nodes(a, value):
+        out = a.new_full((P, N, N), value)
+        out[:, :N1, :N2] = a
+        return out
+
+    return (Tp, edges(esrc1), edges(edst1), edges(esrc2), edges(edst2),
+            nodes(diag, 1.0), nodes(precond, 1.0), nodes(b, 0.0), tol,
+            maxiter)
+
+
+def _edited(args, edit):
+    """A copy of the operands with ``edit`` applied to the list."""
+    args = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    edit(args)
+    return args
+
+
+def _isolated_top(args):
+    """The highest-index product node of every pair, which no edge
+    touches in the slice's padded batch, gets b != 0."""
+    args[7][:, -1, -1] = 1.0
+    args[5][:, -1, -1] = 2.0
+    args[6][:, -1, -1] = 0.5
+
+
+def _dead_live_edges(args):
+    """Edges whose T is exactly 0 (an edge kernel of 0 on a feature):
+    side-1 edge 3 and side-2 edge 5 of every pair, and every other row
+    of pair 0."""
+    args[0][:, 3, :] = 0.0
+    args[0][:, :, 5] = 0.0
+    args[0][0, ::2, :] = 0.0
+
+
 @pytest.mark.parametrize('atoms1,atoms2', [
     ((9, 24), (9, 24)),     # the slice's molecules
     ((5, 9), (20, 24)),     # rectangular: n1 != n2, M1 != M2
-    ((30, 45), (30, 45)),   # over 48 KB of shared memory per pair
-])
+    ((30, 45), (30, 45)),   # over 48 KB of shared memory a pair, 8 nodes
+    ((40, 48), (48, 56)),   # 48 x 56 nodes: 11 a thread
+    ((48, 56), (48, 56)),   # n = 56: 13 product nodes a thread, the most
+])                          # a block holds
 def test_kernel_matches_twin(card, atoms1, atoms2):
     args = _systems(card, atoms1, atoms2)
     before = pcg_resident.launches
@@ -79,6 +139,47 @@ def test_kernel_matches_twin(card, atoms1, atoms2):
     assert err <= 1e-5 * float(x_ref.abs().max())
     assert int((iters - iters_ref).abs().max()) <= 1
     assert int(iters.max()) < args[-1]
+
+
+@pytest.mark.parametrize('case', ['padded', 'isolated', 'dead', 'tol0'])
+def test_kernel_live_extent_cases(card, case):
+    """9-atom molecules padded to n = 24, m = 64; an isolated
+    highest-index node with b != 0; live edges whose T is exactly 0; and
+    16 fixed steps (tol = 0), each against the twin."""
+    if case == 'padded':
+        args = _padded(_systems(card, (9, 10), (9, 10)), 24, 64)
+        L1, _, n1, n2 = live_extent(*args[:5], args[7])
+        assert int(L1.max()) < 32 and int((n1 * n2).max()) < 24 * 24
+    else:
+        base = _systems(card, (9, 24), (9, 24))
+        edit = {'isolated': _isolated_top, 'dead': _dead_live_edges,
+                'tol0': lambda a: a.__setitem__(8, torch.zeros_like(a[8]))}
+        args = _edited(base, edit[case])
+        if case == 'tol0':
+            args[9] = 16
+    x, iters = pcg_resident(*args)
+    x_ref, iters_ref = pcg_resident_reference(*args)
+    torch.cuda.synchronize()
+    _close(x, x_ref)
+    assert int((iters - iters_ref).abs().max()) <= 1
+    if case == 'isolated':
+        # the node couples to nothing: x = b / diag there
+        assert bool(torch.allclose(x[:, -1, -1], torch.full_like(
+            x[:, -1, -1], 0.5)))
+    if case == 'tol0':
+        assert bool(torch.all(iters == 16))
+
+
+def test_kernels_repeat_bitwise(card):
+    args = _systems(card, (9, 24), (9, 24))
+    x1, it1 = pcg_resident(*args)
+    x2, it2 = pcg_resident(*args)
+    grouped = group_pairs(3, *args)
+    y1, jt1 = pcg_packed(*grouped)
+    y2, jt2 = pcg_packed(*grouped)
+    torch.cuda.synchronize()
+    assert torch.equal(x1, x2) and torch.equal(it1, it2)
+    assert torch.equal(y1, y2) and torch.equal(jt1, jt2)
 
 
 def test_kernel_stop_rules(card):
@@ -113,6 +214,17 @@ def test_pair_beyond_shared_memory_raises(card):
     e = torch.zeros(P, M, dtype=torch.int32, device=card)
     d = torch.ones(P, N, N, device=card)
     with pytest.raises(ValueError, match='shared memory.*pcg_stream'):
+        pcg_resident(T, e, e, e, e, d, d, d, torch.ones(P, device=card), 8)
+
+
+def test_pair_beyond_registers_raises(card):
+    """64 x 64 product nodes fit shared memory but exceed the 13 a thread
+    that the registers hold."""
+    P, M, N = 1, 64, 64
+    T = torch.zeros(P, M, M, device=card)
+    e = torch.zeros(P, M, dtype=torch.int32, device=card)
+    d = torch.ones(P, N, N, device=card)
+    with pytest.raises(ValueError, match='registers.*pcg_stream'):
         pcg_resident(T, e, e, e, e, d, d, d, torch.ones(P, device=card), 8)
 
 
@@ -328,16 +440,17 @@ def test_stream_no_pairs_launches_nothing(card):
     assert pcg_stream.launches == before
 
 
-@pytest.mark.parametrize('k', [2, 3])
+@pytest.mark.parametrize('k', [1, 2, 3, 4])
 def test_packed_kernel_matches_twin_on_pairs(card, k):
     """Groups of k different pairs (the TPU's layout), P not a multiple of
     k: against the twin and against pcg_resident per pair."""
     args = _systems(card, (9, 24), (9, 24))     # 20 pairs
     grouped = group_pairs(k, *args)
-    before = pcg_packed.launches
+    counter = pcg_resident if k == 1 else pcg_packed   # k = 1: one pair
+    before = counter.launches
     x, iters = pcg_packed(*grouped)
     torch.cuda.synchronize()
-    assert pcg_packed.launches == before + 1
+    assert counter.launches == before + 1
     x_ref, iters_ref = pcg_packed_reference(*grouped)
     scale = float(x_ref.abs().max())
     assert bool(torch.isfinite(x).all())
@@ -374,6 +487,93 @@ def test_packed_kernel_shared_operator(card):
     assert int(iters[1]) == 0 and not x[1].any() and not x[2, 3].any()
 
 
+def _tangent_systems(device, case='slice'):
+    """pcg_packed's operands for the n_theta = 4 tangent systems of each of
+    20 molecule pairs, one shared operator a pair, at the value solution:
+    the slice's molecules ('slice'), the same with edges whose T is
+    exactly 0 ('dead'), 9-atom molecules padded to n = 24, m = 64
+    ('padded'), or molecules of 48-55 atoms (n = 56, 'large')."""
+    kernel = _kernel(device)
+    atoms = {'padded': (9, 10), 'large': (48, 56)}.get(case, (9, 24))
+    _, bd1, _ = kernel._prepare_batch(random_molecule_set(3, 5, atoms))
+    _, bd2, _ = kernel._prepare_batch(random_molecule_set(4, 4, atoms))
+    i, j = np.indices((5, 4))
+    ops = kernel._operands(bd1, bd2,
+                           torch.as_tensor(i.ravel(), device=device),
+                           torch.as_tensor(j.ravel(), device=device))
+    theta = kernel._theta_vector()
+    kw = dict(knode=kernel.node_kernel, kedge=kernel.edge_kernel,
+              n_p_theta=1, mode='cuda')
+    s = mlgk_setup(theta, ops, **kw)
+    operator = [s[f].contiguous() for f in (
+        'T', 'esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'diag', 'precond')]
+    maxiter = kernel.maxiter(bd1['node_mask'].shape[1])
+    x, _ = pcg_resident_reference(*operator, s['b'].contiguous(), s['tol'],
+                                  maxiter)
+    rhs = mlgk_tangents(theta, ops, s, x, **kw)['rhs'].contiguous()
+    args = operator + [rhs, s['gtol'].contiguous(), maxiter]
+    if case == 'dead':
+        args = _edited(args, _dead_live_edges)
+    elif case == 'padded':
+        args = list(_padded(args[:7] + [rhs[:, 0], args[8], maxiter], 24, 64))
+        pad = rhs.new_zeros(rhs.shape[0], rhs.shape[1], 24, 24)
+        pad[:, :, :rhs.shape[2], :rhs.shape[3]] = rhs
+        args[7] = pad
+    return args
+
+
+@pytest.mark.parametrize('case', ['slice', 'dead'])
+@pytest.mark.parametrize('group', [1, 2, 3, 4])
+def test_packed_tangent_groups(card, case, group):
+    """A pair's tangent systems in groups of every size the tangent route
+    can pick, the members sharing the pair's operator, against the twin
+    (a group of one runs pcg_resident's kernel)."""
+    args = _tangent_systems(card, case)
+    operator, rhs, tol, maxiter = args[:7], args[7], args[8], args[9]
+    assert rhs.shape[1] == 4 == PACKED_MAX_K
+    assert largest_packed_k(4, *args[0].shape[1:], *rhs.shape[2:], card,
+                            shared=True) == 4
+    grouped = ([a[:, None] for a in operator]
+               + [rhs[:, :group].contiguous(), tol, maxiter * group])
+    counter = pcg_resident if group == 1 else pcg_packed
+    before = counter.launches
+    x, iters = pcg_packed(*grouped)
+    x_ref, iters_ref = pcg_packed_reference(*grouped)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    _close(x, x_ref)
+    assert int((iters - iters_ref).abs().max()) <= 1
+
+
+def test_tangent_route_on_the_card(card):
+    """cuda_tangent_solver's groups on the card give the twin's
+    solutions, for the slice's molecules, for 9-atom molecules padded
+    far beyond their graphs, and for 48-55-atom molecules, whose tangents
+    run one a CTA in pcg_resident's kernel."""
+    for case in ('slice', 'padded', 'large'):
+        args = _tangent_systems(card, case)
+        operator, rhs, tol, maxiter = args[:7], args[7], args[8], args[9]
+        k = rhs.shape[1]
+        solve = cuda_tangent_solver(k, *operator[0].shape[1:],
+                                    *rhs.shape[2:], card)
+        group = solve.args[0]
+        assert group == (1 if case == 'large' else k)
+        resident, packed = pcg_resident.launches, pcg_packed.launches
+        x, _ = solve(*operator, rhs, tol, maxiter)
+        if case == 'large':
+            assert pcg_resident.launches == resident + 1
+            assert pcg_packed.launches == packed
+        else:
+            assert pcg_packed.launches == packed + 1
+        # the twin on the route's groups: each stops at its own residual
+        x_ref = torch.cat([pcg_packed_reference(
+            *[a[:, None] for a in operator],
+            rhs[:, s:s + group].contiguous(), tol, maxiter * group)[0]
+            for s in range(0, k, group)], dim=1)
+        torch.cuda.synchronize()
+        _close(x, x_ref)
+
+
 def test_packed_group_beyond_shared_memory_raises(card):
     M, N, k = 128, 24, 8
     T = torch.zeros(1, k, M, M, device=card)
@@ -397,9 +597,17 @@ def test_gradient_cuda_matches_edge(card):
 
 
 def test_route_by_shared_memory(card):
-    """Molecule pairs fit a block and run pcg_resident; the protein pairs
-    of the niche do not, and run pcg_stream, in the kernel class too."""
+    """Molecule pairs fit a block and run pcg_resident; pairs whose
+    product nodes exceed a block's registers, and the protein pairs of the
+    niche, do not, and run pcg_stream, in the kernel class too."""
     assert cuda_solver(64, 64, 24, 24, card) is pcg_resident
+    # all fit shared memory; 56 x 56 nodes are 13 a thread, the most a
+    # thread holds in registers; 64 x 64 exceed it
+    assert cuda_solver(64, 64, 48, 48, card) is pcg_resident
+    assert cuda_solver(64, 64, 56, 56, card) is pcg_resident
+    assert cuda_solver(168, 168, 64, 64, card) is pcg_stream
+    # the boundary molecules (48-72 atoms) exceed shared memory
+    assert cuda_solver(192, 192, 72, 72, card) is pcg_stream
     assert cuda_solver(1144, 1144, 88, 88, card) is pcg_stream
     assert cuda_solver(3736, 3736, 272, 272, card) is pcg_stream
     graphs = protein_niche_set(13, 2, (60, 90))
@@ -412,3 +620,19 @@ def test_route_by_shared_memory(card):
     kernel(graphs)
     assert pcg_resident.launches == resident
     assert pcg_stream.launches == stream + 1
+
+
+def test_large_molecules_run_resident(card):
+    """The value and gradient Grams of 48-55-atom molecules (n = 56, 13
+    product nodes a thread) run in pcg_resident's kernel alone, tangents
+    one a CTA, and match the edge backend."""
+    graphs = random_molecule_set(11, 6, n_atoms_range=(48, 56))
+    counts = [c.launches for c in (pcg_resident, pcg_packed, pcg_stream)]
+    K, dK = Normalization(_kernel(card))(graphs, eval_gradient=True)
+    after = [c.launches for c in (pcg_resident, pcg_packed, pcg_stream)]
+    assert after[0] == counts[0] + 2 and after[1:] == counts[1:]
+    K_edge, dK_edge = Normalization(_kernel(card, 'edge'))(
+        graphs, eval_gradient=True)
+    np.testing.assert_allclose(K, K_edge, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(dK, dK_edge, rtol=0,
+                               atol=1e-3 * np.abs(dK_edge).max() + 1e-5)
