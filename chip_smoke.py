@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``graphdot_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's paths once each through their public entry point,
-``Normalization(MarginalizedGraphKernel(..., device='cuda'))(graphs)``:
+Drives the port's paths once each through their public entry points,
+``Normalization(MarginalizedGraphKernel(..., device='cuda'))(graphs)`` and
+``GaussianProcessRegressor(..., device='cuda').fit(graphs, y)``:
 
 - the molecule slice, the cosine-normalized Gram over the 128 molecule
   graphs that ``bench.py`` uses (8256 graph pairs, Tang2019-style kernel,
@@ -17,38 +18,53 @@ Drives the port's paths once each through their public entry point,
   run in the CUDA kernel ``pcg_packed``, the 4 tangents of a pair as one
   group; and the gradient of 48-72-atom molecules, whose tangents run in
   ``pcg_stream``;
+- the factory route: non-nodal calls of 512 jobs or more (the 128-molecule
+  Grams above) run through a ``GramFactory`` cached by the kernel, which
+  packs the graphs once, by size class (9-24 atoms: the classes 16 and 24);
+- the GP fit: ``GaussianProcessRegressor`` with L-BFGS-B on the 128
+  molecules, every objective evaluation a Gram and its jacobian through one
+  factory (``pcg_resident`` and ``pcg_packed``), then a prediction;
 
 and checks every part of them:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of the three kernels from ``graphdot_tpu_torch/csrc``, one
    ``nvcc`` a source, started together;
-3. ``pcg_resident`` against its plain PyTorch twin on the systems of the
-   first 512 molecule pairs, on the card: max |dx| <= 1e-5 * max |x|; and,
-   for the TPU timing prototype ``scripts/proto_pallas.py`` that it
-   covers, at the prototype's shape (2080 pairs, M = 64, N = 24) and fixed
-   16 steps (tol = 0) against the twin at the same step count;
-4. the normalized molecule Gram with ``backend='cuda'``: finite,
-   symmetric, unit diagonal; ``pcg_resident`` launched once per job chunk
-   and ``pcg_stream`` never; within 1e-6 of the same Gram with
+3. ``pcg_resident`` against its plain PyTorch twin on the systems of every
+   value chunk of the main path: the plan of the factory that the kernel
+   caches for the 128 molecules (size classes 16 and 24, the groups (16,
+   16), (16, 24) and (24, 24), one chunk each), built as the factory
+   builds them, on the card: max |dx| <= 1e-5 * max |x|; and, for the TPU
+   timing prototype ``scripts/proto_pallas.py`` that it covers, at the
+   prototype's shape (2080 pairs, M = 64, N = 24: the (24, 24) chunk) and
+   fixed 16 steps (tol = 0) against the twin at the same step count;
+4. the normalized molecule Gram with ``backend='cuda'`` (factory route):
+   finite, symmetric, unit diagonal; ``pcg_resident`` launched once per
+   chunk of the factory's groups and ``pcg_stream`` never; within 1e-6 of
+   the same Gram with
    ``backend='edge'`` and of the JAX package's reference Gram stored in
    ``tests/fixtures/torch_port_gram_ref.npz``;
-5. timings: ``pcg_resident`` and its twin at the molecule chunk shape,
-   the wrapper call by CUDA events beside the kernel's own device time
-   (``torch.profiler`` over the same calls), with the chunk's live-edge
-   and live-node means and the kernel's occupancy; and the wall time of a
-   whole molecule Gram build;
+5. timings: ``pcg_resident`` and its twin on each value chunk of the
+   factory, the wrapper call by CUDA events beside the kernel's own device
+   time (``torch.profiler`` over the same calls), with the chunk's
+   live-edge and live-node means, the kernel's occupancy and bound (the
+   summary line's numbers are the largest chunk's, the (16, 24) chunk of
+   4096 pairs); and the wall time of a whole molecule Gram build (factory
+   route, cache hit);
 6. ``pcg_stream``'s build, and the kernel against its twin on the systems
    of the first protein chunk and on a lone protein pair, each pair split
    over the default C CTAs (``stream_ctas_per_pair``) and over one, two
    runs at the default C bitwise equal, and against ``pcg_resident`` on
-   the first 512 molecule pairs: max |dx| <= 1e-5 * max |x| for all;
+   the first 512 pairs of the (24, 24) molecule chunk: max |dx| <= 1e-5 *
+   max |x| for all;
 7. the normalized protein Gram with ``backend='cuda'``: finite, symmetric,
    unit diagonal; ``pcg_stream`` launched once per chunk and
    ``pcg_resident`` never; within 1e-5 of ``backend='edge'`` on the card
    (float32 sums over 7.4e4 product nodes run in other orders there than
    over the molecules' 576, hence 1e-5 and not 1e-6);
-8. the boundary: the Gram over the small protein set of the JAX fixture
+8. the boundary, on the per-pair route (``GRAPHDOT_API_UNION=0``: one
+   batch padded to the largest graph): the Gram over the small protein set
+   of the JAX fixture
    ``tests/fixtures/torch_port_protein_ref.npz`` (pairs of 5.2 MB of T)
    runs in ``pcg_stream`` and is within 1e-6 of the JAX Gram; 32 molecules
    of 48-72 atoms (n = 72, m = 192, over 227 KB a pair) run in
@@ -58,47 +74,83 @@ and checks every part of them:
    (n = 64) in ``pcg_stream``, both within 1e-6 of ``backend='edge'``;
 9. timings with CUDA events, in turns (C = 1, default, default, C = 1):
    ``pcg_stream`` on one protein chunk and on a lone protein pair, beside
-   the twin on both; ``pcg_stream`` and ``pcg_resident`` on one molecule
-   chunk, the CG steps of both; the protein Gram's wall time per build,
+   the twin on both; ``pcg_stream`` and ``pcg_resident`` on the (24, 24)
+   molecule chunk, the CG steps of both; the protein Gram's wall time per
+   build,
    and one profiled protein build (``torch.profiler``);
 10. ``pcg_packed`` against its twin: (a) the tangent groups (k = 4, one
-    shared operator) of the first 512 molecule pairs, (b) ``group_pairs(2)``
-    over the same pairs (the TPU's layout) against the twin and against
-    ``pcg_resident``, max |dx| <= 1e-5 * max |x| for both; (c) a group
-    beyond a block's shared memory raises;
-11. the gradient slice: K and dK [128, 128, 4] finite, K within 1e-6 of
-    phase 4's Gram, dK symmetric, its p column <= 1e-5 (p cancels in a
-    normalized kernel); ``pcg_packed`` launched once per job chunk and
+    shared operator, as the main path groups them) of every gradient chunk
+    of the factory (9 chunks over the three groups), (b) ``group_pairs(2)``
+    over the first 512 pairs of the (24, 24) chunk (the TPU's layout)
+    against the twin and against ``pcg_resident``, max |dx| <= 1e-5 * max
+    |x| for both; (c) a group beyond a block's shared memory raises;
+11. the gradient slice (factory route): K and dK [128, 128, 4] finite, K
+    within 1e-6 of phase 4's Gram, dK symmetric, its p column <= 1e-5 (p
+    cancels in a normalized kernel); ``pcg_packed`` launched once per chunk
+    and
     ``pcg_stream`` never; dK within 1e-3 * max |dK| + 1e-5 of
     ``backend='edge'``; K and dK over the first 8 graphs within 1e-6 and
     1e-3 * max |dK| + 1e-5 of the JAX package's reference in
     ``tests/fixtures/torch_port_grad_ref.npz``; central differences in
     log theta (step 1e-3) within rtol 0.05, atol 0.05;
-12. the gradient of the 32 molecules of 48-72 atoms: tangents in
+12. on the per-pair route, the gradient of the 32 molecules of 48-72
+    atoms: tangents in
     ``pcg_stream``, ``pcg_packed`` never; of the 48-55-atom ones: value
     and tangents (one a CTA) in ``pcg_resident`` only; dK within phase
     11's tolerance of ``edge`` for both;
-13. timings: ``pcg_packed`` and its twin on one gradient chunk's tangent
-    groups, by CUDA events and by device time, with live means and
-    occupancy; ``pcg_packed`` on pair groups
-    (k = 2 and 4)
-    against ``pcg_resident`` on one 4096-pair chunk, with the CG steps of
-    groups and of pairs; the gradient Gram's wall time beside the value
-    Gram's (medians of 5, in turns); one profiled gradient build
-    (``torch.profiler``): device busy share, device time by kernel, host
-    time in the solver's phases.
+13. timings: ``pcg_packed`` and its twin on the tangent groups of the
+    first gradient chunk of each factory group, by CUDA events and by
+    device time, with live means, occupancy and bound (the summary line's
+    numbers are the (16, 24) chunk's, 903 pairs); ``pcg_packed`` on pair
+    groups (k = 2 and 4) against ``pcg_resident`` on the (24, 24) chunk,
+    with the CG steps of groups and of pairs; the gradient Gram's wall
+    time beside the value
+    Gram's (factory route, medians of 5, in turns); one profiled gradient
+    build (``torch.profiler``): device busy share, device time by kernel,
+    host time in the solver's phases;
+14. the factory route: a fresh kernel's first call packs each size class
+    once (``batch_graphs`` calls counted) and caches one factory;
+    ``pcg_resident`` launched once per chunk, ``pcg_stream`` never; a second
+    call and the gradient call pack nothing; K within 1e-6 and dK within
+    1e-3 * max |dK| + 1e-5 of the per-pair route and of the JAX fixtures;
+    the 32 x 128 cross-Gram of ``random_molecule_set(7, 32, (9, 24))``
+    against the 128 takes a rectangular factory, within 1e-6 * max |K| of
+    the per-pair route; value and gradient walls of both routes in turns
+    (medians of 5), and one profiled factory build of each; below the
+    route's threshold of 512 jobs (16 and 31 molecules: 136 and 496 jobs),
+    the unnormalized value and gradient Grams on the per-pair route, on the
+    factory route's first call (packing included) and on a cache hit, in
+    turns (medians of 5);
+15. the GP fit: ``GaussianProcessRegressor(Normalization(kernel), alpha =
+    1e-2, normalize_y, optimizer)`` fitted with ``tol = 1e-4`` to
+    ``bench_nuts.py``'s targets (-10 |nodes| + N(0, 1)) through the factory
+    engine: it converges, its negative LML at the fit is at most theta0's,
+    every objective evaluation launches ``pcg_resident`` and ``pcg_packed``
+    and ``pcg_stream`` never; the gradient at theta0 within rtol 0.05, atol
+    0.05 of central differences in log theta (step 0.1) and within
+    1e-3 * max |grad| + 1e-3 of ``backend='edge'`` (LML within 1e-5
+    relative); predictions with
+    std of the 32 held-out molecules finite, std >= 0; the LML, gradient and
+    predictions over 16 + 8 molecules within the tolerances of
+    ``tests/test_torch_gpr.py`` of the JAX values in
+    ``tests/fixtures/torch_port_gpr_ref.npz``; the evaluations, the fit's
+    wall, the wall and the launches an evaluation; one profiled
+    evaluation, and the factory's Gram and jacobian timed against the
+    float64 objective and its chain rule (medians of 5, in turns).
 
 Prints the kernel summary as one JSON line (each kernel's wrapper time
 and device time beside its bound: the larger of the bytes of its inputs
 and outputs over 3.35 TB/s
 and the float32 operations of the CG steps it ran, over the live edges,
-over 67 TFLOP/s), then the card's name and power limit, and as its last
-line ``{"ok": true, "device": {...}}``. Exits
+over 67 TFLOP/s; and its launches on each path), then the card's name
+and power limit, and as its last line ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when a phase fails or there is no CUDA
 device. Usage: ``python3 chip_smoke.py`` from the root of the checkout.
 """
+import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -111,6 +163,12 @@ ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_gram_ref.npz'
 GRAD_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_grad_ref.npz'
 PROTEIN_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_protein_ref.npz'
+GPR_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_gpr_ref.npz'
+#: the GP fit of phase 15: bench_nuts.py's alpha, L-BFGS-B's tol, and the
+#: step of the central differences in log theta. The float32 Gram leaves
+#: ~3e-3 of rounding in the negative LML (~2.6e3 at theta0), so a step of
+#: 1e-2 puts ~0.15 of noise in a difference quotient; 0.1 puts ~0.015
+GP_ALPHA, GP_TOL, GP_FD_STEP = 1e-2, 1e-4, 0.1
 N_COMPARE = 512       # pairs in the kernel-vs-twin comparison
 BUILD_REPEATS = 5     # timed molecule Gram builds
 PROTEIN_REPEATS = 3   # timed protein Gram builds
@@ -199,10 +257,11 @@ def live_report(args, members=1):
     live = {'live_edges_1': float(L1.mean()),
             'live_edges_2': float(L2.mean()),
             'live_nodes': float((n1 * n2).mean()),
-            'padded_edges': T.shape[-2],
+            'padded_edges': list(T.shape[-2:]),
             'padded_nodes': b.shape[-2] * b.shape[-1]}
     return live, (f'live edges a side mean {live["live_edges_1"]:.2f} / '
-                  f'{live["live_edges_2"]:.2f} of {T.shape[-2]}, live product '
+                  f'{live["live_edges_2"]:.2f} of {T.shape[-2]} / '
+                  f'{T.shape[-1]}, live product '
                   f'nodes mean {live["live_nodes"]:.2f} of '
                   f'{live["padded_nodes"]}')
 
@@ -309,6 +368,186 @@ def profile_build(build, what):
         say(f'    host {host.get(name, 0.0) / 1e3:9.3f} ms in {name}')
 
 
+@contextlib.contextmanager
+def api_union(value):
+    """``GRAPHDOT_API_UNION`` set to ``value`` within: ``'0'`` keeps
+    non-nodal calls on the per-pair route, ``'1'`` sends every one through
+    the kernel's cached factory."""
+    old = os.environ.get('GRAPHDOT_API_UNION')
+    os.environ['GRAPHDOT_API_UNION'] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ['GRAPHDOT_API_UNION']
+        else:
+            os.environ['GRAPHDOT_API_UNION'] = old
+
+
+def factory_chunks(kernel, graphs, eval_gradient=False):
+    """The chunks of the kernel's cached factory over ``graphs``: one launch
+    of the value kernel each, and of ``pcg_packed`` with ``eval_gradient``
+    (a cache hit: the factory exists)."""
+    plan = kernel._get_call_factory(graphs, None)._plan
+    return sum(1 for grp in plan.groups
+               for _ in plan.chunks(grp, eval_gradient))
+
+
+def gp_targets(graphs):
+    """``bench_nuts.py``'s targets: -10 |nodes| + N(0, 1), default_rng(0)."""
+    rng = np.random.default_rng(0)
+    return np.array([-10.0 * len(g.nodes) + rng.normal() for g in graphs])
+
+
+def gp_phase(graphs, held, make_kernel):
+    """Phase 15: fit ``GaussianProcessRegressor`` with L-BFGS-B on the 128
+    molecules (``bench_nuts.py``'s targets, alpha 1e-2, ``normalize_y``),
+    its Gram and jacobian through the factory engine on the card, and
+    predict the held-out molecules; check the fit, its gradient, and the
+    JAX fixture. Returns the kernels' launches during the fit."""
+    import torch
+    from graphdot_tpu_torch.inference import GramFactory
+    from graphdot_tpu_torch.kernel import Normalization
+    from graphdot_tpu_torch.model.gaussian_process import (
+        GaussianProcessRegressor)
+    from graphdot_tpu_torch.model.gaussian_process import _objectives as obj
+    from graphdot_tpu_torch.ops.pcg import pcg_packed, pcg_resident, pcg_stream
+
+    counters = (pcg_resident, pcg_packed, pcg_stream)
+    y = gp_targets(graphs)
+    model = GaussianProcessRegressor(
+        Normalization(make_kernel()), alpha=GP_ALPHA, normalize_y=True,
+        optimizer=True, device='cuda')
+    theta0 = model.kernel.theta.copy()
+    evaluations = []    # (eval_gradient, theta, launches of each kernel)
+    real_gram = GramFactory.gram
+
+    def recorded_gram(self, theta_log, **kwargs):
+        before = [c.launches for c in counters]
+        out = real_gram(self, theta_log, **kwargs)
+        evaluations.append((kwargs.get('eval_gradient', False),
+                            np.asarray(theta_log).copy(),
+                            [c.launches - b
+                             for c, b in zip(counters, before)]))
+        return out
+
+    GramFactory.gram = recorded_gram
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        model.fit(graphs, y, tol=GP_TOL)
+        torch.cuda.synchronize()
+    except RuntimeError:
+        say('  the fit failed; theta at each objective evaluation:')
+        for grad, theta, _ in evaluations:
+            say(f'    {"gradient" if grad else "value"} {theta.tolist()}')
+        raise
+    finally:
+        GramFactory.gram = real_gram
+    fit_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    steps = [e for e in evaluations if e[0]]
+    n_evals = len(steps)
+    check(model._engine is not None and n_evals >= 2,
+          f'the fit converged after {n_evals} objective evaluations through '
+          'the factory engine')
+    check(all(l[0] >= 1 and l[1] >= 1 for _, _, l in steps)
+          and launches['pcg_stream'] == 0,
+          'every evaluation launched pcg_resident and pcg_packed; pcg_stream '
+          'never')
+    say(f'  theta {theta0.tolist()} -> {model.kernel.theta.tolist()}')
+    say(f'  fit wall {fit_s:.4f} s, {n_evals} evaluations with gradient and '
+        f'{len(evaluations) - n_evals} without, {fit_s / n_evals * 1e3:.3f} '
+        'ms an evaluation; launches an evaluation: ' + ', '.join(
+            f'{name} {count / n_evals:.3f}'
+            for name, count in launches.items()))
+    nll_fit = model.log_marginal_likelihood()
+    nll0 = model.log_marginal_likelihood(theta0)
+    check(nll_fit <= nll0, f'negative LML {nll_fit:.6f} at the fit <= '
+          f'{nll0:.6f} at theta0')
+    value, grad = model.log_marginal_likelihood(theta0, eval_gradient=True)
+    fd = []
+    for t in range(len(theta0)):
+        step = np.zeros_like(theta0)
+        step[t] = GP_FD_STEP
+        fd.append((model.log_marginal_likelihood(theta0 + step)
+                   - model.log_marginal_likelihood(theta0 - step))
+                  / (2 * GP_FD_STEP))
+    say(f'  gradient at theta0 {grad.tolist()}, central differences '
+        f'(step {GP_FD_STEP}) {fd}')
+    check(np.allclose(grad, fd, rtol=0.05, atol=0.05),
+          'the gradient matches central differences (rtol 0.05, atol 0.05)')
+    edge = GaussianProcessRegressor(
+        Normalization(make_kernel('edge')), alpha=GP_ALPHA,
+        normalize_y=True, device='cuda')
+    edge.X, edge.y = graphs, y
+    value_edge, grad_edge = edge.log_marginal_likelihood(
+        theta0, eval_gradient=True)
+    tol = 1e-3 * float(np.abs(grad_edge).max()) + 1e-3
+    check(abs(value - value_edge) <= 1e-5 * abs(value_edge)
+          and float(np.abs(grad - grad_edge).max()) <= tol,
+          f'backend edge: negative LML {value_edge:.6f} vs {value:.6f} '
+          f'(rtol 1e-5), max |grad - grad_edge| = '
+          f'{float(np.abs(grad - grad_edge).max()):.3e} <= {tol:.3e}')
+    t0 = time.perf_counter()
+    mean, std = model.predict(held, return_std=True)
+    say(f'  predict {len(held)} held-out molecules with std: '
+        f'{time.perf_counter() - t0:.4f} s')
+    check(mean.shape == std.shape == (len(held),)
+          and bool(np.isfinite(mean).all()) and bool((std >= 0).all()),
+          f'means finite, std >= 0 (mean |y - mean| over the held-out set '
+          f'{float(np.abs(gp_targets(held) - mean).mean()):.3f}; targets of '
+          'their own draw)')
+
+    ref = np.load(GPR_FIXTURE)
+    n_train, n_predict = int(ref['n_train']), int(ref['n_predict'])
+    check(np.array_equal(ref['y'], y[:n_train]),
+          f'the fixture\'s targets are those of the first {n_train} graphs')
+    small = GaussianProcessRegressor(
+        Normalization(make_kernel()), alpha=float(ref['alpha']),
+        normalize_y=True, device='cuda')
+    for i, theta in enumerate(ref['theta']):
+        small.kernel.theta = theta
+        small.fit(graphs[:n_train], y[:n_train])
+        lml, g = small.log_marginal_likelihood(eval_gradient=True)
+        m, s = small.predict(held[:n_predict], return_std=True)
+        gtol = 1e-3 * float(np.abs(ref['grad'][i]).max()) + 1e-3
+        check(abs(lml - ref['lml'][i]) <= 1e-4 * abs(ref['lml'][i])
+              and float(np.abs(g - ref['grad'][i]).max()) <= gtol
+              and np.allclose(m, ref['mean'][i], rtol=1e-4, atol=0)
+              and float(np.abs(s - ref['std'][i]).max()) <= 1e-4,
+              f'JAX fixture at theta {i}: LML {lml:.6f} vs '
+              f'{ref["lml"][i]:.6f} '
+              f'(rtol 1e-4), max |grad - grad_jax| '
+              f'{float(np.abs(g - ref["grad"][i]).max()):.3e} <= {gtol:.3e}, '
+              f'means rtol 1e-4 (max rel '
+              f'{float(np.abs(m / ref["mean"][i] - 1).max()):.2e}), max |std '
+              f'- std_jax| {float(np.abs(s - ref["std"][i]).max()):.2e} <= '
+              '1e-4')
+    theta_fit = model.kernel.theta.copy()
+    profile_build(lambda: model.log_marginal_likelihood(
+        theta_fit, eval_gradient=True, clone_kernel=False), 'fit evaluation')
+    # an evaluation's two halves, in turns: the factory's Gram and
+    # jacobian on the host, then the float64 objective and its chain rule
+    halves = {'gram': [], 'linalg': []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        K, dK = model._engine_gramian(model.alpha, theta_fit, True)
+        t1 = time.perf_counter()
+        _, (gK,) = obj.negative_log_marginal(K, model._y, model.beta,
+                                             with_grad=True, device='cuda')
+        obj.chain_to_theta(gK, dK, theta_fit, device='cuda')
+        torch.cuda.synchronize()
+        halves['gram'].append(t1 - t0)
+        halves['linalg'].append(time.perf_counter() - t1)
+    say('  an evaluation at the fit, medians of 5: ' + ', '.join(
+        f'{part} {np.median(ts) * 1e3:.3f} ms ('
+        + ', '.join(f'{t * 1e3:.3f}' for t in ts) + ')'
+        for part, ts in halves.items()))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -326,7 +565,8 @@ def main():
         KroneckerDelta, SquareExponential, TensorProduct)
     from graphdot_tpu_torch.ops import _build
     from graphdot_tpu_torch.ops.pcg import (
-        group_pairs, kernel_occupancy, pcg_packed, pcg_packed_reference,
+        group_pairs, kernel_occupancy, largest_packed_k, pcg_packed,
+        pcg_packed_reference,
         pcg_resident, pcg_resident_reference, pcg_stream,
         pcg_stream_reference)
     from graphdot_tpu_torch.testing import (
@@ -388,20 +628,21 @@ def main():
     kernel = make_kernel()
     check(kernel.backend.mode == 'cuda', "backend 'auto' resolves to cuda")
 
-    say('== 3. kernel against its plain twin')
-    batch, bd, _ = kernel._prepare_batch(graphs)
-    n_pad, m_pad = batch.node_mask.shape[1], batch.esrc.shape[1]
-    maxiter = kernel.maxiter(n_pad)
-    chunk = kernel._chunk_size(n_pad, m_pad)
-    i_jobs, j_jobs = np.triu_indices(n_graphs)
+    say('== 3. pcg_resident against its plain twin, on the value chunks of '
+        'the main path')
+    # the factory that the kernel caches for the 128 molecules serves the
+    # Grams of phases 4, 5, 11 and 13-15; its plan is what they solve
+    fac = kernel._get_call_factory(graphs, None)
+    plan = fac._plan
 
-    def systems(n, kern=kernel, bdict=bd, iters=maxiter, jobs=None):
-        """The solver's operands for the first n jobs of ``jobs``."""
-        i_all, j_all = (i_jobs, j_jobs) if jobs is None else jobs
-        idx1 = torch.as_tensor(i_all[:n], device='cuda')
-        idx2 = torch.as_tensor(j_all[:n], device='cuda')
+    def shape_of(grp):
+        return f'({grp["n1"]}, {grp["n2"]})'
+
+    def systems(kern, bd1, bd2, idx1, idx2, iters):
+        """The solver's operands for the jobs (idx1[k], idx2[k]) of two
+        prepared batches."""
         s = mlgk_setup(kern._theta_vector(),
-                       kern._operands(bdict, bdict, idx1, idx2),
+                       kern._operands(bd1, bd2, idx1, idx2),
                        knode=kern.node_kernel, kedge=kern.edge_kernel,
                        n_p_theta=1, mode='cuda')
         return (s['T'], s['esrc_1'], s['edst_1'], s['esrc_2'],
@@ -409,23 +650,42 @@ def main():
                 s['precond'].contiguous(), s['b'].contiguous(), s['tol'],
                 iters)
 
-    args = systems(N_COMPARE)
-    x_k, it_k = pcg_resident(*args)
-    x_r, it_r = pcg_resident_reference(*args)
-    torch.cuda.synchronize()
-    max_abs_err = float((x_k - x_r).abs().max())
-    scale = float(x_r.abs().max())
-    say(f'  {N_COMPARE} pairs, T {tuple(args[0].shape)}, x '
-        f'{tuple(x_k.shape)}; CG steps kernel mean '
-        f'{float(it_k.float().mean()):.2f} max {int(it_k.max())}, twin '
-        f'mean {float(it_r.float().mean()):.2f} max {int(it_r.max())}')
-    check(bool(torch.isfinite(x_k).all()), 'kernel x is finite')
-    check(max_abs_err <= 1e-5 * scale,
-          f'max |x_kernel - x_twin| = {max_abs_err:.3e} <= 1e-5 * '
-          f'max |x| = {1e-5 * scale:.3e}')
-    proto = list(systems(PROTO_PAIRS, iters=PROTO_STEPS))
+    def chunk_systems(grp, idx1, idx2):
+        """The operands that the factory gives pcg_resident for the jobs
+        (idx1, idx2) of a group, at the group's step bound."""
+        return systems(kernel, grp['bd1'], grp['bd2'], idx1, idx2,
+                       fac._group_maxiter(grp))
+
+    # (group, local indices 1, local indices 2): one launch each
+    value_chunks = [(grp, idx1, idx2) for grp in plan.groups
+                    for _, idx1, idx2 in plan.chunks(grp)]
+    resident_errs = []
+    for grp, idx1, idx2 in value_chunks:
+        args = chunk_systems(grp, idx1, idx2)
+        x_k, it_k = pcg_resident(*args)
+        x_r, it_r = pcg_resident_reference(*args)
+        torch.cuda.synchronize()
+        err = float((x_k - x_r).abs().max())
+        scale = float(x_r.abs().max())
+        resident_errs.append(err)
+        say(f'  group {shape_of(grp)}: {len(idx1)} pairs, T '
+            f'{tuple(args[0].shape)}, x {tuple(x_k.shape)}; CG steps kernel '
+            f'mean {float(it_k.float().mean()):.2f} max {int(it_k.max())}, '
+            f'twin mean {float(it_r.float().mean()):.2f} max '
+            f'{int(it_r.max())}')
+        check(bool(torch.isfinite(x_k).all()) and err <= 1e-5 * scale,
+              f'group {shape_of(grp)}: x finite, max |x_kernel - x_twin| = '
+              f'{err:.3e} <= 1e-5 * max |x| = {1e-5 * scale:.3e}')
+    max_abs_err = max(resident_errs)
+    # the (24, 24) chunk: 2080 pairs at M = 64, N = 24, the prototype's
+    # shape; its first pairs also hold pcg_stream and the pair groups of
+    # pcg_packed against pcg_resident in phases 6, 9, 10 and 13
+    square = next(c for c in value_chunks
+                  if (c[0]['n1'], c[0]['n2']) == (24, 24))
+    proto = list(chunk_systems(*square))
     proto[8] = torch.zeros_like(proto[8])          # tol = 0: fixed steps
-    check(tuple(proto[0].shape[1:]) == (64, 64)
+    proto[9] = PROTO_STEPS
+    check(proto[0].shape == (PROTO_PAIRS, 64, 64)
           and tuple(proto[5].shape[1:]) == (24, 24),
           f'{PROTO_PAIRS} pairs at the prototype\'s M = 64, N = 24')
     x_k, it_k = pcg_resident(*proto)
@@ -440,16 +700,20 @@ def main():
           f'{proto_err:.3e} <= 1e-5 * max |x| = {1e-5 * scale:.3e}')
 
     say('== 4. the molecule slice: normalized 128-molecule Gram, '
-        'backend=cuda')
-    n_chunks = math.ceil(n_pairs / chunk)
+        'backend=cuda, through the cached factory')
     pcg_resident.launches = pcg_stream.launches = 0
     t0 = time.perf_counter()
     K = Normalization(kernel)(graphs)
     first_build_s = time.perf_counter() - t0
     launches = pcg_resident.launches
     check(pcg_stream.launches == 0, 'pcg_stream launched 0 times')
-    say(f'  first build {first_build_s:.4f} s, {n_pairs} pairs, n_pad '
-        f'{n_pad}, m_pad {m_pad}, chunk {chunk}')
+    check(kernel._get_call_factory(graphs, None) is fac,
+          'the call took the factory of phase 3')
+    n_chunks = factory_chunks(kernel, graphs)
+    say(f'  first build (the factory packed in phase 3) '
+        f'{first_build_s:.4f} s, '
+        f'{n_pairs} pairs in {n_chunks} chunks of the factory\'s size-class '
+        'groups')
     check(K.shape == (n_graphs, n_graphs), f'K is {n_graphs}x{n_graphs}')
     check(bool(np.isfinite(K).all()), 'K is finite')
     sym_err = float(np.abs(K - K.T).max())
@@ -470,27 +734,50 @@ def main():
           f'= {ref_err:.3e} <= 1e-6')
 
     say('== 5. timing')
-    args = systems(chunk)
-    x_k, steps = pcg_resident(*args)
-    resident_bound = pcg_bound(args, x_k, steps)
-    resident_live, text = live_report(args)
-    say(f'  one chunk of {chunk} pairs: {text}')
-    resident_occ = kernel_occupancy('pcg_resident', m_pad, m_pad, n_pad,
-                                    n_pad)
-    say(f'  pcg_resident occupancy at the chunk shape: {resident_occ}')
-    resident_times = time_call(lambda: pcg_resident(*args), 20,
-                               'pcg_resident_kernel')
-    kernel_ms = resident_times['ms']
-    resident_device_ms = resident_times['device_ms']
-    plain_ms = cuda_ms(lambda: pcg_resident_reference(*args), reps=5)
-    say(f'  one chunk of {chunk} pairs (CG steps mean '
-        f'{float(steps.float().mean()):.3f}, max {int(steps.max())}): '
-        f'kernel {kernel_ms:.4f} ms by events, device {resident_device_ms} '
-        f'ms, plain twin {plain_ms:.4f} ms, bound '
-        f'{resident_bound[0]:.4f} ms ({resident_bound[1]})')
-    say(f'    in turns (events, device): {resident_times["runs"]}')
-    resident_split = step_split(pcg_resident, args, 'pcg_resident_kernel')
-    say(f'  device time by part: {resident_split}')
+
+    def time_chunk(name, wrapper, reference, grp, args, reps, err):
+        """One chunk's wrapper by events and device time, its twin, bound,
+        live means and occupancy, as a row of the summary line."""
+        x, steps = wrapper(*args)
+        bound = pcg_bound(args, x, steps)
+        live, text = live_report(args)
+        (M1, M2), (N1, N2) = args[0].shape[-2:], args[5].shape[-2:]
+        k = x.shape[1] if x.dim() == 4 else 1
+        occ = kernel_occupancy(name, M1, M2, N1, N2, k=k)
+        times = time_call(lambda: wrapper(*args), reps, name + '_kernel')
+        plain = cuda_ms(lambda: reference(*args), reps=3)
+        row = {'group': [grp['n1'], grp['n2']], 'pairs': x.shape[0],
+               'M': [M1, M2], 'max_abs_err': err, 'ms': times['ms'],
+               'device_ms': times['device_ms'], 'plain_ms': plain,
+               'bound_ms': bound[0], 'bound_by': bound[1],
+               'cg_steps_mean': float(steps.float().mean()),
+               'cg_steps_max': int(steps.max()), 'occupancy': occ,
+               'live': live}
+        say(f'  group {shape_of(grp)}, a chunk of {x.shape[0]} pairs (M = '
+            f'{M1}, {M2}; CG steps mean {row["cg_steps_mean"]:.3f}, max '
+            f'{row["cg_steps_max"]}): {name} {times["ms"]:.4f} ms by events, '
+            f'device {times["device_ms"]} ms, plain twin {plain:.4f} ms, '
+            f'bound {bound[0]:.4f} ms ({bound[1]})')
+        say(f'    in turns (events, device): {times["runs"]}; {text}; '
+            f'occupancy {occ}')
+        return row
+
+    resident_rows = []
+    for (grp, idx1, idx2), err in zip(value_chunks, resident_errs):
+        resident_rows.append(time_chunk(
+            'pcg_resident', pcg_resident, pcg_resident_reference, grp,
+            chunk_systems(grp, idx1, idx2), 20, err))
+        resident_rows[-1]['chunks_in_group'] = sum(
+            1 for g, _, _ in value_chunks if g is grp)
+    # the summary line's row: the largest chunk, (16, 24) of 4096 pairs
+    main = max(range(len(value_chunks)),
+               key=lambda c: resident_rows[c]['pairs'])
+    resident_main = resident_rows[main]
+    resident_split = step_split(pcg_resident,
+                                chunk_systems(*value_chunks[main]),
+                                'pcg_resident_kernel')
+    say(f'  device time by part, group '
+        f'{shape_of(value_chunks[main][0])}: {resident_split}')
     walls = []
     for _ in range(BUILD_REPEATS):
         t0 = time.perf_counter()
@@ -498,9 +785,9 @@ def main():
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = float(np.median(walls))
-    say(f'  normalized Gram build: median {wall * 1e3:.3f} ms, min '
-        f'{min(walls) * 1e3:.3f} ms over {BUILD_REPEATS}; '
-        f'{n_pairs / wall:.1f} pairs/s at the median')
+    say(f'  normalized Gram build (factory route, cache hit): median '
+        f'{wall * 1e3:.3f} ms, min {min(walls) * 1e3:.3f} ms over '
+        f'{BUILD_REPEATS}; {n_pairs / wall:.1f} pairs/s at the median')
 
     say('== 6. pcg_stream: build and twin checks')
     build_report('pcg_stream')
@@ -518,8 +805,9 @@ def main():
     pn_pad, pm_pad = pbatch.node_mask.shape[1], pbatch.esrc.shape[1]
     p_pairs = len(proteins) * (len(proteins) + 1) // 2
     p_chunk = min(pkernel._chunk_size(pn_pad, pm_pad), p_pairs)
-    p_jobs = np.triu_indices(len(proteins))
-    p_args = systems(p_chunk, pkernel, pbd, pkernel.maxiter(pn_pad), p_jobs)
+    p_jobs = [torch.as_tensor(j[:p_chunk], device='cuda')
+              for j in np.triu_indices(len(proteins))]
+    p_args = systems(pkernel, pbd, pbd, *p_jobs, pkernel.maxiter(pn_pad))
     say(f'  proteins: {p_pairs} pairs, n_pad {pn_pad}, m_pad {pm_pad}, '
         f'chunk {p_chunk}, T {tuple(p_args[0].shape)} '
         f'({p_args[0].numel() * 4 / 1e6:.1f} MB)')
@@ -551,14 +839,16 @@ def main():
           f'two runs at C = {pcg_stream.last_ctas_per_pair} are bitwise '
           'equal')
     del x_s, x_r, x_a, x_b
-    args = systems(N_COMPARE)
+    args = chunk_systems(square[0], square[1][:N_COMPARE],
+                         square[2][:N_COMPARE])
     x_s, _ = pcg_stream(*args)
     x_k, _ = pcg_resident(*args)
     torch.cuda.synchronize()
     err = float((x_s - x_k).abs().max())
     scale = float(x_k.abs().max())
     check(err <= 1e-5 * scale,
-          f'{N_COMPARE} molecule pairs: max |x_stream - x_resident| = '
+          f'{N_COMPARE} molecule pairs of the (24, 24) chunk: max '
+          f'|x_stream - x_resident| = '
           f'{err:.3e} <= 1e-5 * max |x| = {1e-5 * scale:.3e}')
 
     say('== 7. the protein slice: normalized Gram, backend=cuda')
@@ -601,31 +891,36 @@ def main():
     fix_err = float(np.abs(KS - pref['K']).max())
     check(fix_err <= 1e-6, f'max |K - K_jax| over the fixture\'s '
           f'{len(small)} proteins = {fix_err:.3e} <= 1e-6')
+    # the 32-molecule sets below (528 jobs) take the per-pair route: one
+    # batch padded to the largest graph, the boundary these checks hold
+    say('  the molecule sets of 32 (528 jobs) on the per-pair route')
     big = random_molecule_set(7, 32, n_atoms_range=(48, 72))
-    pcg_resident.launches = pcg_stream.launches = 0
-    KB = Normalization(make_kernel())(big)
-    check(pcg_stream.launches >= 1 and pcg_resident.launches == 0,
-          f'48-72-atom molecules: pcg_stream launched '
-          f'{pcg_stream.launches} times, pcg_resident 0')
-    big_err = float(np.abs(KB - Normalization(make_kernel('edge'))(big))
-                    .max())
-    check(big_err <= 1e-6, f'max |K_cuda - K_edge| over 32 molecules of '
-          f'48-72 atoms = {big_err:.3e} <= 1e-6')
-    large = {}
-    for atoms, solver in (((48, 56), pcg_resident), ((56, 64), pcg_stream)):
-        large[atoms] = random_molecule_set(7, 32, n_atoms_range=atoms)
-        lbatch, _, _ = kernel._prepare_batch(large[atoms])
-        ln = lbatch.node_mask.shape[1]
+    with api_union('0'):
         pcg_resident.launches = pcg_stream.launches = 0
-        KL = Normalization(make_kernel())(large[atoms])
-        check(solver.launches >= 1 and pcg_resident.launches
-              + pcg_stream.launches == solver.launches,
-              f'{atoms[0]}-{atoms[1] - 1}-atom molecules (n = {ln}, m = '
-              f'{lbatch.esrc.shape[1]}): {solver.__name__} launched '
-              f'{solver.launches} times, the other 0')
-        err = float(np.abs(KL - Normalization(make_kernel('edge'))(
-            large[atoms])).max())
-        check(err <= 1e-6, f'max |K_cuda - K_edge| = {err:.3e} <= 1e-6')
+        KB = Normalization(make_kernel())(big)
+        check(pcg_stream.launches >= 1 and pcg_resident.launches == 0,
+              f'48-72-atom molecules: pcg_stream launched '
+              f'{pcg_stream.launches} times, pcg_resident 0')
+        big_err = float(np.abs(
+            KB - Normalization(make_kernel('edge'))(big)).max())
+        check(big_err <= 1e-6, f'max |K_cuda - K_edge| over 32 molecules '
+              f'of 48-72 atoms = {big_err:.3e} <= 1e-6')
+        large = {}
+        for atoms, solver in (((48, 56), pcg_resident),
+                              ((56, 64), pcg_stream)):
+            large[atoms] = random_molecule_set(7, 32, n_atoms_range=atoms)
+            lbatch, _, _ = kernel._prepare_batch(large[atoms])
+            ln = lbatch.node_mask.shape[1]
+            pcg_resident.launches = pcg_stream.launches = 0
+            KL = Normalization(make_kernel())(large[atoms])
+            check(solver.launches >= 1 and pcg_resident.launches
+                  + pcg_stream.launches == solver.launches,
+                  f'{atoms[0]}-{atoms[1] - 1}-atom molecules (n = {ln}, m = '
+                  f'{lbatch.esrc.shape[1]}): {solver.__name__} launched '
+                  f'{solver.launches} times, the other 0')
+            err = float(np.abs(KL - Normalization(make_kernel('edge'))(
+                large[atoms])).max())
+            check(err <= 1e-6, f'max |K_cuda - K_edge| = {err:.3e} <= 1e-6')
 
     say('== 9. timing')
     stream_times = {}
@@ -652,11 +947,12 @@ def main():
         f'the call\'s kernels {stream_device_ms} ms')
     stream_plain_ms = stream_times['chunk', 'plain']
     stream_bound = stream_times['chunk', 'bound']
-    args = systems(chunk)
+    args = chunk_systems(*square)
     _, m_steps = pcg_stream(*args)
     mol_stream_ms = cuda_ms(lambda: pcg_stream(*args), reps=10)
     mol_resident_ms = cuda_ms(lambda: pcg_resident(*args), reps=10)
-    say(f'  one molecule chunk of {chunk} pairs (CG steps mean '
+    say(f'  the (24, 24) molecule chunk of {args[0].shape[0]} pairs (CG '
+        'steps mean '
         f'{float(m_steps.float().mean()):.3f}, max {int(m_steps.max())}): '
         f'pcg_stream {mol_stream_ms:.4f} ms, pcg_resident '
         f'{mol_resident_ms:.4f} ms')
@@ -675,41 +971,53 @@ def main():
     say('== 10. pcg_packed against its twin')
     build_report('pcg_packed')
 
-    def tangent_groups(n):
-        """pcg_packed's operands for the tangent systems of the first n
-        molecule pairs: one group a pair, its 4 tangents sharing the pair's
-        operator, at the pair's value solution."""
-        idx1 = torch.as_tensor(i_jobs[:n], device='cuda')
-        idx2 = torch.as_tensor(j_jobs[:n], device='cuda')
-        ops = kernel._operands(bd, bd, idx1, idx2)
+    def tangent_groups(grp, idx1, idx2):
+        """pcg_packed's operands for the tangent systems of the jobs (idx1,
+        idx2) of a factory group, as the main path's tangent route builds
+        them: one group a pair, its 4 tangents sharing the pair's operator,
+        at the pair's value solution, the step bound scaled by k."""
+        ops = kernel._operands(grp['bd1'], grp['bd2'], idx1, idx2)
         theta = kernel._theta_vector()
         kw = dict(knode=kernel.node_kernel, kedge=kernel.edge_kernel,
                   n_p_theta=1, mode='cuda')
         s = mlgk_setup(theta, ops, **kw)
         operator = [s[f].contiguous() for f in (
             'T', 'esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'diag', 'precond')]
-        x, _ = pcg_resident(*operator, s['b'].contiguous(), s['tol'],
-                            maxiter)
+        iters = fac._group_maxiter(grp)
+        x, _ = pcg_resident(*operator, s['b'].contiguous(), s['tol'], iters)
         rhs = mlgk_tangents(theta, ops, s, x, **kw)['rhs'].contiguous()
         k = rhs.shape[1]
+        M1, M2 = operator[0].shape[1:]
+        check(largest_packed_k(k, M1, M2, grp['n1'], grp['n2'],
+                               torch.device('cuda'), shared=True) == k,
+              f'group {shape_of(grp)}: the main path runs the {k} tangents '
+              'of a pair as one group')
         return ([a[:, None] for a in operator]
-                + [rhs, s['gtol'].contiguous(), min(maxiter * k, 16384)])
+                + [rhs, s['gtol'].contiguous(), min(iters * k, 16384)])
 
-    t_args = tangent_groups(N_COMPARE)
-    x_k, it_k = pcg_packed(*t_args)
-    x_r, it_r = pcg_packed_reference(*t_args)
-    torch.cuda.synchronize()
-    packed_err = float((x_k - x_r).abs().max())
-    scale = float(x_r.abs().max())
-    say(f'  (a) {N_COMPARE} tangent groups of k = {t_args[7].shape[1]}, '
-        f'shared operator; CG steps kernel mean '
-        f'{float(it_k.float().mean()):.2f} max {int(it_k.max())}, twin '
-        f'mean {float(it_r.float().mean()):.2f} max {int(it_r.max())}')
-    check(bool(torch.isfinite(x_k).all()), 'pcg_packed x is finite')
-    check(packed_err <= 1e-5 * scale,
-          f'max |x_packed - x_twin| = {packed_err:.3e} <= 1e-5 * max |x| = '
-          f'{1e-5 * scale:.3e}')
-    args = systems(N_COMPARE)
+    # (group, local indices 1, local indices 2): one launch each
+    gradient_chunks = [(grp, idx1, idx2) for grp in plan.groups
+                       for _, idx1, idx2 in plan.chunks(grp, True)]
+    packed_errs = []
+    for grp, idx1, idx2 in gradient_chunks:
+        t_args = tangent_groups(grp, idx1, idx2)
+        x_k, it_k = pcg_packed(*t_args)
+        x_r, it_r = pcg_packed_reference(*t_args)
+        torch.cuda.synchronize()
+        err = float((x_k - x_r).abs().max())
+        scale = float(x_r.abs().max())
+        packed_errs.append(err)
+        say(f'  (a) group {shape_of(grp)}: {len(idx1)} tangent groups of k '
+            f'= {t_args[7].shape[1]}, shared operator; CG steps kernel mean '
+            f'{float(it_k.float().mean()):.2f} max {int(it_k.max())}, twin '
+            f'mean {float(it_r.float().mean()):.2f} max {int(it_r.max())}')
+        check(bool(torch.isfinite(x_k).all()) and err <= 1e-5 * scale,
+              f'group {shape_of(grp)}: x finite, max |x_packed - x_twin| = '
+              f'{err:.3e} <= 1e-5 * max |x| = {1e-5 * scale:.3e}')
+    packed_err = max(packed_errs)
+    del t_args
+    args = chunk_systems(square[0], square[1][:N_COMPARE],
+                         square[2][:N_COMPARE])
     grouped = group_pairs(2, *args)
     x_k, it_k = pcg_packed(*grouped)
     x_r, _ = pcg_packed_reference(*grouped)
@@ -725,7 +1033,8 @@ def main():
           f'max |x_packed - x_resident| = {err_res:.3e} <= 1e-5 * max |x| '
           f'= {1e-5 * scale:.3e}')
     try:
-        pcg_packed(*group_pairs(16, *systems(64)))
+        pcg_packed(*group_pairs(16, *chunk_systems(
+            square[0], square[1][:64], square[2][:64])))
     except ValueError as e:
         check('largest k that fits' in str(e),
               f'(c) a group of 16 pairs raises: {e}')
@@ -733,14 +1042,14 @@ def main():
         raise RuntimeError('check failed: a group of 16 pairs did not raise')
 
     say('== 11. the gradient slice: normalized 128-molecule Gram with '
-        'eval_gradient=True, backend=cuda')
-    g_chunk = kernel._chunk_size(n_pad, m_pad, eval_gradient=True)
-    g_chunks = math.ceil(n_pairs / g_chunk)
+        'eval_gradient=True, backend=cuda, through the cached factory')
+    g_chunks = factory_chunks(kernel, graphs, eval_gradient=True)
     pcg_resident.launches = pcg_stream.launches = pcg_packed.launches = 0
     t0 = time.perf_counter()
     KG, dKG = Normalization(kernel)(graphs, eval_gradient=True)
-    say(f'  first build {time.perf_counter() - t0:.4f} s, chunk {g_chunk}')
+    say(f'  first build {time.perf_counter() - t0:.4f} s, {g_chunks} chunks')
     packed_launches = pcg_packed.launches
+    grad_resident_launches = pcg_resident.launches
     check(packed_launches == g_chunks,
           f'pcg_packed launched {packed_launches} times = {g_chunks} chunks')
     check(pcg_resident.launches == g_chunks and pcg_stream.launches == 0,
@@ -786,68 +1095,69 @@ def main():
               f'{float(np.abs(dKG[:n_ref, :n_ref, t] - fd).max()):.3e})')
 
     say('== 12. the gradient beyond shared memory: 32 molecules of 48-72 '
-        'atoms')
-    pcg_resident.launches = pcg_stream.launches = pcg_packed.launches = 0
-    _, dKB = Normalization(make_kernel())(big, eval_gradient=True)
-    check(pcg_stream.launches >= 2 and pcg_packed.launches == 0
-          and pcg_resident.launches == 0,
-          f'pcg_stream launched {pcg_stream.launches} times (value and '
-          'tangent solves), pcg_packed and pcg_resident 0')
-    _, dKB_edge = Normalization(make_kernel('edge'))(big, eval_gradient=True)
-    tol = 1e-3 * float(np.abs(dKB_edge).max()) + 1e-5
-    err = float(np.abs(dKB - dKB_edge).max())
-    check(bool(np.isfinite(dKB).all()) and err <= tol,
-          f'max |dK_cuda - dK_edge| = {err:.3e} <= {tol:.3e}')
-    pcg_resident.launches = pcg_stream.launches = pcg_packed.launches = 0
-    _, dKL = Normalization(make_kernel())(large[48, 56], eval_gradient=True)
-    check(pcg_resident.launches >= 2 and pcg_packed.launches == 0
-          and pcg_stream.launches == 0,
-          f'48-55-atom molecules: pcg_resident launched '
-          f'{pcg_resident.launches} times (value solves and tangents one a '
-          'CTA), pcg_packed and pcg_stream 0')
-    _, dKL_edge = Normalization(make_kernel('edge'))(
-        large[48, 56], eval_gradient=True)
-    tol = 1e-3 * float(np.abs(dKL_edge).max()) + 1e-5
-    err = float(np.abs(dKL - dKL_edge).max())
-    check(bool(np.isfinite(dKL).all()) and err <= tol,
-          f'max |dK_cuda - dK_edge| = {err:.3e} <= {tol:.3e}')
+        'atoms, on the per-pair route')
+    with api_union('0'):
+        pcg_resident.launches = pcg_stream.launches = 0
+        pcg_packed.launches = 0
+        _, dKB = Normalization(make_kernel())(big, eval_gradient=True)
+        check(pcg_stream.launches >= 2 and pcg_packed.launches == 0
+              and pcg_resident.launches == 0,
+              f'pcg_stream launched {pcg_stream.launches} times (value and '
+              'tangent solves), pcg_packed and pcg_resident 0')
+        _, dKB_edge = Normalization(make_kernel('edge'))(
+            big, eval_gradient=True)
+        tol = 1e-3 * float(np.abs(dKB_edge).max()) + 1e-5
+        err = float(np.abs(dKB - dKB_edge).max())
+        check(bool(np.isfinite(dKB).all()) and err <= tol,
+              f'max |dK_cuda - dK_edge| = {err:.3e} <= {tol:.3e}')
+        pcg_resident.launches = pcg_stream.launches = 0
+        pcg_packed.launches = 0
+        _, dKL = Normalization(make_kernel())(large[48, 56],
+                                              eval_gradient=True)
+        check(pcg_resident.launches >= 2 and pcg_packed.launches == 0
+              and pcg_stream.launches == 0,
+              f'48-55-atom molecules: pcg_resident launched '
+              f'{pcg_resident.launches} times (value solves and tangents one '
+              'a CTA), pcg_packed and pcg_stream 0')
+        _, dKL_edge = Normalization(make_kernel('edge'))(
+            large[48, 56], eval_gradient=True)
+        tol = 1e-3 * float(np.abs(dKL_edge).max()) + 1e-5
+        err = float(np.abs(dKL - dKL_edge).max())
+        check(bool(np.isfinite(dKL).all()) and err <= tol,
+              f'max |dK_cuda - dK_edge| = {err:.3e} <= {tol:.3e}')
 
     say('== 13. timing of the gradient path')
-    t_args = tangent_groups(g_chunk)
-    x_k, t_steps = pcg_packed(*t_args)
-    packed_bound = pcg_bound(t_args, x_k, t_steps)
-    packed_live, text = live_report(t_args)
-    say(f'  tangent groups of one gradient chunk: {text}')
-    k_t = t_args[7].shape[1]
-    packed_occ = kernel_occupancy('pcg_packed', m_pad, m_pad, n_pad, n_pad,
-                                  k=k_t, ka=1)
-    say(f'  pcg_packed occupancy (k = {k_t}, shared operator): '
-        f'{packed_occ}')
-    packed_times = time_call(lambda: pcg_packed(*t_args), 10,
-                             'pcg_packed_kernel')
-    packed_ms = packed_times['ms']
-    packed_device_ms = packed_times['device_ms']
-    packed_plain_ms = cuda_ms(lambda: pcg_packed_reference(*t_args), reps=3)
-    say(f'  tangent groups of one gradient chunk ({g_chunk} pairs x 4, CG '
-        f'steps mean {float(t_steps.float().mean()):.3f}, max '
-        f'{int(t_steps.max())}): pcg_packed {packed_ms:.4f} ms by events, '
-        f'device {packed_device_ms} ms, plain twin '
-        f'{packed_plain_ms:.4f} ms, bound {packed_bound[0]:.4f} ms '
-        f'({packed_bound[1]})')
-    say(f'    in turns (events, device): {packed_times["runs"]}')
-    packed_split = step_split(pcg_packed, t_args, 'pcg_packed_kernel')
-    say(f'  device time by part: {packed_split}')
-    args = systems(chunk)
+    # the first gradient chunk of each group; the summary line's row is
+    # the (16, 24) group's, a chunk of 903 pairs
+    packed_rows = []
+    for grp in plan.groups:
+        c = next(c for c, (g, _, _) in enumerate(gradient_chunks)
+                 if g is grp)
+        packed_rows.append(time_chunk(
+            'pcg_packed', pcg_packed, pcg_packed_reference, grp,
+            tangent_groups(*gradient_chunks[c]), 10, packed_errs[c]))
+        packed_rows[-1]['chunks_in_group'] = sum(
+            1 for g, _, _ in gradient_chunks if g is grp)
+    main_t = next(c for c, (g, _, _) in enumerate(gradient_chunks)
+                  if g is value_chunks[main][0])
+    packed_main = next(row for row, grp in zip(packed_rows, plan.groups)
+                       if grp is value_chunks[main][0])
+    packed_split = step_split(pcg_packed,
+                              tangent_groups(*gradient_chunks[main_t]),
+                              'pcg_packed_kernel')
+    say(f'  device time by part, group '
+        f'{shape_of(gradient_chunks[main_t][0])}: {packed_split}')
+    args = chunk_systems(*square)
     _, p_steps = pcg_resident(*args)
     res_ms = cuda_ms(lambda: pcg_resident(*args), reps=20)
-    say(f'  one value chunk of {chunk} pairs: pcg_resident {res_ms:.4f} ms '
-        f'(CG steps mean {float(p_steps.float().mean()):.3f}, max '
-        f'{int(p_steps.max())})')
+    say(f'  the (24, 24) value chunk of {args[0].shape[0]} pairs: '
+        f'pcg_resident {res_ms:.4f} ms (CG steps mean '
+        f'{float(p_steps.float().mean()):.3f}, max {int(p_steps.max())})')
     for k in (2, 4):
         grouped = group_pairs(k, *args)
         _, g_steps = pcg_packed(*grouped)
         k_ms = cuda_ms(lambda: pcg_packed(*grouped), reps=20)
-        alone = p_steps[:grouped[7].shape[0] * k].reshape(-1, k)
+        alone = p_steps[:len(p_steps) // k * k].reshape(-1, k)
         say(f'  the same chunk in groups of k = {k} pairs: pcg_packed '
             f'{k_ms:.4f} ms ({res_ms / k_ms:.3f}x pcg_resident); CG steps '
             f'of groups mean {float(g_steps.float().mean()):.3f} max '
@@ -862,22 +1172,169 @@ def main():
             walls[what].append(time.perf_counter() - t0)
     for what, ws in walls.items():
         wall = float(np.median(ws))
-        say(f'  normalized {what} Gram build: median {wall * 1e3:.3f} ms '
-            f'over {GRAD_REPEATS} ({", ".join(f"{w * 1e3:.3f}" for w in ws)})'
-            f'; {n_pairs / wall:.1f} pairs/s at the median')
+        say(f'  normalized {what} Gram build (factory route): median '
+            f'{wall * 1e3:.3f} ms over {GRAD_REPEATS} '
+            f'({", ".join(f"{w * 1e3:.3f}" for w in ws)}); '
+            f'{n_pairs / wall:.1f} pairs/s at the median')
     profile_build(lambda: Normalization(kernel)(
-        graphs, eval_gradient=True), 'gradient')
+        graphs, eval_gradient=True), 'gradient (factory route)')
+
+    say('== 14. the factory route: __call__ through a cached GramFactory')
+    import graphdot_tpu_torch.kernel.marginalized._kernel as kernel_module
+    packings = []
+    real_batch_graphs = kernel_module.batch_graphs
+
+    def counted_batch_graphs(batch, *args, **kwargs):
+        packings.append(len(batch))
+        return real_batch_graphs(batch, *args, **kwargs)
+
+    kernel_module.batch_graphs = counted_batch_graphs
+    fkernel = make_kernel()
+    pcg_resident.launches = pcg_stream.launches = pcg_packed.launches = 0
+    t0 = time.perf_counter()
+    KF = Normalization(fkernel)(graphs)
+    say(f'  first call (packing included) {time.perf_counter() - t0:.4f} s')
+    fac = fkernel._get_call_factory(graphs, None)
+    check(len(fkernel._factory_cache) == 1 and not fac.normalize,
+          'one cached factory over the 128 molecules')
+    groups = [(g['n1'], g['n2'], len(g['pos'])) for g in fac._plan.groups]
+    f_chunks = factory_chunks(fkernel, graphs)
+    say(f'  size-class groups (n1, n2, jobs): {groups}; packings '
+        f'{packings}; {f_chunks} chunks')
+    check(len(packings) == fac._plan.n_classes == 2,
+          f'{len(packings)} packings, one a size class')
+    check(pcg_resident.launches == f_chunks and pcg_stream.launches == 0,
+          f'pcg_resident launched {pcg_resident.launches} times = '
+          f'{f_chunks} chunks, pcg_stream 0')
+    KF2 = Normalization(fkernel)(graphs)
+    check(len(packings) == 2, 'a second call hits the cache: no packing')
+    check(float(np.abs(KF2 - KF).max()) <= 1e-7, 'and gives the same K')
+    with api_union('0'):
+        KP = Normalization(fkernel)(graphs)
+    err = float(np.abs(KF - KP).max())
+    check(err <= 1e-6, f'max |K_factory - K_per_pair| = {err:.3e} <= 1e-6')
+    err = float(np.abs(KF[:n_ref, :n_ref] - ref['K']).max())
+    check(err <= 1e-6, f'max |K - K_jax| over the first {n_ref} graphs = '
+          f'{err:.3e} <= 1e-6')
+    n_packed = len(packings)   # the per-pair route packs at every call
+    pcg_resident.launches = pcg_stream.launches = pcg_packed.launches = 0
+    KFG, dKF = Normalization(fkernel)(graphs, eval_gradient=True)
+    fg_chunks = factory_chunks(fkernel, graphs, eval_gradient=True)
+    check(len(packings) == n_packed, 'the gradient call reuses the factory: '
+          'no packing')
+    check(pcg_resident.launches == pcg_packed.launches == fg_chunks
+          and pcg_stream.launches == 0,
+          f'gradient: pcg_resident and pcg_packed launched '
+          f'{pcg_resident.launches} and {pcg_packed.launches} times = '
+          f'{fg_chunks} chunks, pcg_stream 0')
+    factory_launches = {'pcg_resident': pcg_resident.launches,
+                        'pcg_packed': pcg_packed.launches,
+                        'pcg_stream': pcg_stream.launches}
+    with api_union('0'):
+        KPG, dKP = Normalization(fkernel)(graphs, eval_gradient=True)
+    err = float(np.abs(KFG - KPG).max())
+    check(err <= 1e-6, f'max |K_factory - K_per_pair| = {err:.3e} <= 1e-6')
+    tol = 1e-3 * float(np.abs(dKP).max()) + 1e-5
+    err = float(np.abs(dKF - dKP).max())
+    check(bool(np.isfinite(dKF).all()) and err <= tol,
+          f'max |dK_factory - dK_per_pair| = {err:.3e} <= {tol:.3e}')
+    tol = 1e-3 * float(np.abs(gref['dK']).max()) + 1e-5
+    err = float(np.abs(dKF[:n_ref, :n_ref] - gref['dK']).max())
+    check(err <= tol, f'max |dK - dK_jax| over the first {n_ref} graphs = '
+          f'{err:.3e} <= {tol:.3e}')
+    held = random_molecule_set(7, 32, n_atoms_range=(9, 24))
+    pcg_resident.launches = pcg_stream.launches = 0
+    KX = fkernel(held, graphs)
+    check(len(fkernel._factory_cache) == 2 and pcg_stream.launches == 0
+          and pcg_resident.launches >= 1,
+          f'the cross-Gram of 32 x 128 ({32 * 128} jobs) took a rectangular '
+          f'factory: pcg_resident launched {pcg_resident.launches} times, '
+          'pcg_stream 0')
+    with api_union('0'):
+        KXP = fkernel(held, graphs)
+    err = float(np.abs(KX - KXP).max())
+    scale = float(np.abs(KXP).max())
+    check(KX.shape == (32, 128) and err <= 1e-6 * scale,
+          f'max |K_factory - K_per_pair| = {err:.3e} <= 1e-6 * max |K| = '
+          f'{1e-6 * scale:.3e}')
+    kernel_module.batch_graphs = real_batch_graphs
+    route_walls = {}
+    for rep in range(GRAD_REPEATS):
+        for gradient in (False, True):
+            routes = ('factory', 'per-pair')
+            for route in routes if rep % 2 == 0 else routes[::-1]:
+                ctx = api_union('0') if route == 'per-pair' \
+                    else contextlib.nullcontext()
+                with ctx:
+                    t0 = time.perf_counter()
+                    Normalization(fkernel)(graphs, eval_gradient=gradient)
+                    torch.cuda.synchronize()
+                route_walls.setdefault((route, gradient), []).append(
+                    time.perf_counter() - t0)
+    for (route, gradient), ws in route_walls.items():
+        say(f'  {"gradient" if gradient else "value"} Gram, {route} route: '
+            f'median {np.median(ws) * 1e3:.3f} ms over {GRAD_REPEATS} '
+            f'({", ".join(f"{w * 1e3:.3f}" for w in ws)})')
+    profile_build(lambda: Normalization(fkernel)(graphs), 'factory value')
+    profile_build(lambda: Normalization(fkernel)(graphs, eval_gradient=True),
+                  'factory gradient')
+    say(f'  below the threshold of {fkernel._API_UNION_MIN_JOBS} jobs: the '
+        'unnormalized Grams on each route, in turns')
+    for n in (16, 31):
+        few_graphs = graphs[:n]
+        sub_walls = {}
+        routes = ('per-pair', 'factory first call', 'factory cache hit')
+        for rep in range(GRAD_REPEATS):
+            for gradient in (False, True):
+                for route in routes if rep % 2 == 0 else routes[::-1]:
+                    with api_union('0' if route == 'per-pair' else '1'):
+                        if route == 'factory first call':
+                            fkernel._factory_cache.clear()
+                        elif route == 'factory cache hit':
+                            fkernel(few_graphs)     # the entry exists
+                        t0 = time.perf_counter()
+                        fkernel(few_graphs, eval_gradient=gradient)
+                        torch.cuda.synchronize()
+                    sub_walls.setdefault((route, gradient), []).append(
+                        time.perf_counter() - t0)
+        for (route, gradient), ws in sub_walls.items():
+            say(f'    {n * (n + 1) // 2} jobs, '
+                f'{"gradient" if gradient else "value"} Gram, {route}: '
+                f'median {np.median(ws) * 1e3:.3f} ms over {GRAD_REPEATS} '
+                f'({", ".join(f"{w * 1e3:.3f}" for w in ws)})')
+
+    say('== 15. the GP fit: GaussianProcessRegressor on the 128 molecules')
+    gp_launches = gp_phase(graphs, held, make_kernel)
+
+    def by_path(name):
+        """A kernel's launches on each path, counted from 0 before it."""
+        return {'value Gram (4)': launches if name == 'pcg_resident' else 0,
+                'protein Gram (7)': stream_launches
+                if name == 'pcg_stream' else 0,
+                'gradient Gram (11)': {
+                    'pcg_resident': grad_resident_launches,
+                    'pcg_packed': packed_launches, 'pcg_stream': 0}[name],
+                'factory gradient (14)': factory_launches[name],
+                'GP fit (15)': gp_launches[name]}
+
+    def headline(row, rows):
+        """A kernel's numbers on the summary line: those of its timed
+        chunk ``row``, and a row for each factory group."""
+        out = {k: row[k] for k in ('ms', 'device_ms', 'plain_ms', 'bound_ms',
+                                   'bound_by', 'occupancy', 'live')}
+        out['timed_chunk'] = {'group': row['group'], 'pairs': row['pairs']}
+        out['groups'] = [{k: v for k, v in r.items()
+                          if k not in ('occupancy', 'live')} for r in rows]
+        return out
 
     say(json.dumps({'kernels': [{
         'name': 'pcg_resident', 'route': 'cuda',
         'source': 'graphdot_tpu_torch/csrc/pcg_resident.cu',
         'replaces': TPU_KERNEL, 'covers': TPU_PROTO_KERNEL,
-        'launches': launches, 'max_abs_err': max_abs_err, 'ms': kernel_ms,
-        'device_ms': resident_device_ms,
-        'plain_ms': plain_ms, 'bound_ms': resident_bound[0],
-        'bound_by': resident_bound[1], 'library_ms': None,
-        'occupancy': resident_occ, 'live': resident_live,
+        'launches': launches, 'max_abs_err': max_abs_err,
+        **headline(resident_main, resident_rows), 'library_ms': None,
         'split': resident_split,
+        'launches_by_path': by_path('pcg_resident'),
     }, {
         'name': 'pcg_stream', 'route': 'cuda',
         'source': 'graphdot_tpu_torch/csrc/pcg_stream.cu',
@@ -895,16 +1352,15 @@ def main():
             'plain_ms': stream_times['lone', 'plain'],
             'bound_ms': stream_times['lone', 'bound'][0],
             'stream_floor_ms': stream_times['lone', 'bound'][2]},
+        'launches_by_path': by_path('pcg_stream'),
     }, {
         'name': 'pcg_packed', 'route': 'cuda',
         'source': 'graphdot_tpu_torch/csrc/pcg_packed.cu',
         'replaces': TPU_PACK_KERNEL, 'launches': packed_launches,
-        'max_abs_err': packed_err, 'ms': packed_ms,
-        'device_ms': packed_device_ms,
-        'plain_ms': packed_plain_ms, 'bound_ms': packed_bound[0],
-        'bound_by': packed_bound[1], 'library_ms': None,
-        'occupancy': packed_occ, 'live': packed_live,
+        'max_abs_err': packed_err,
+        **headline(packed_main, packed_rows), 'library_ms': None,
         'split': packed_split,
+        'launches_by_path': by_path('pcg_packed'),
     }]}))
     say(nvidia_smi())
     say(json.dumps({'ok': True, 'device': {

@@ -2,9 +2,11 @@
 
 A copy of :mod:`graphdot_tpu.graph.batch` with the numpy packer only. What
 differs from the original: there is no native C++ packer and no
-``use_native`` argument, and a graph's packing is cached in ``g.cookie``
-under a key of this package's own, so that a graph passed through both
-packages never reads the other's packing. Each graph is packed into
+``use_native`` argument, ``batch_graphs(dense=False)`` leaves out the dense
+arrays that only the solver's ``'dense'`` mode reads, and a graph's
+packing is cached in ``g.cookie`` under a key of this package's own, so
+that a graph passed through both packages never reads the other's
+packing. Each graph is packed into
 dense, padded numpy arrays:
 
 - ``adj``: [n, n] symmetrized weighted adjacency (f32)
@@ -158,7 +160,7 @@ def _pad_leaf(arr, shape):
 
 
 def batch_graphs(graphs, n_pad=None, m_pad=None, node_align=8,
-                 edge_align=8):
+                 edge_align=8, dense=True):
     """Stack a list of graphs into one padded GraphBatch (numpy arrays).
 
     Parameters
@@ -168,6 +170,9 @@ def batch_graphs(graphs, n_pad=None, m_pad=None, node_align=8,
         Explicit padded node / directed-edge counts; rounded-up maxima by
         default. Pass shared values across calls to give every batch
         the same shapes.
+    dense: bool
+        Stack the dense ``adj`` and ``edge_feats``, which only the solver's
+        ``'dense'`` mode reads; without them both fields are None.
     """
     packed = [pack_graph(g) for g in graphs]
     B = len(packed)
@@ -183,7 +188,8 @@ def batch_graphs(graphs, n_pad=None, m_pad=None, node_align=8,
     for b, p in enumerate(packed):
         node_mask[b, :p.n] = 1.0
 
-    adj = np.stack([_pad_leaf(p.adj, (n_pad, n_pad)) for p in packed])
+    adj = np.stack([_pad_leaf(p.adj, (n_pad, n_pad)) for p in packed]) \
+        if dense else None
     degree = np.stack([_pad_leaf(p.degree, (n_pad,)) for p in packed])
 
     def stack_feats(feats_list, base_shape_of):
@@ -215,7 +221,7 @@ def batch_graphs(graphs, n_pad=None, m_pad=None, node_align=8,
     edge_feats = stack_feats(
         [p.edge_feats for p in packed],
         lambda L: (n_pad, n_pad) if L is None else (n_pad, n_pad, L)
-    )
+    ) if dense else None
 
     esrc = np.stack([_pad_leaf(p.esrc, (m_pad,)) for p in packed])
     edst = np.stack([_pad_leaf(p.edst, (m_pad,)) for p in packed])

@@ -44,7 +44,11 @@ class _Wrapper:
         return self.kernel.bounds
 
     def clone_with_theta(self, theta):
-        twin = copy.deepcopy(self)
+        """A copy at ``theta`` whose wrapped kernel is cloned by its own
+        ``clone_with_theta``, so that a graph kernel's clone shares its
+        factory cache."""
+        twin = copy.copy(self)
+        twin.kernel = self.kernel.clone_with_theta(self.kernel.theta)
         twin.theta = theta
         return twin
 

@@ -2,16 +2,19 @@
 ``graphdot_tpu/kernel/marginalized/_kernel.py`` (``__call__``, ``diag``,
 the sklearn-compatible ``theta``/``bounds``/``clone_with_theta``).
 
-The job list (upper-triangular or rectangular index set) is cut into
-chunks of pair indices, gathered on the kernel's device; all pairs in a
-chunk are solved at once by :func:`._solver.mlgk_solve`. Every tensor lives
-on the ``device`` given to the kernel. With ``eval_gradient=True`` each
-chunk also solves the tangent systems of every hyperparameter (forward
-mode, as the JAX package's ``jax.jacfwd``), and the results carry
-d K / d theta on the linear scale.
+The job list (upper-triangular or rectangular index set) is grouped by
+size class and cut into chunks of pair indices (:class:`JobPlan`), gathered
+on the kernel's device; all pairs in a chunk are solved at once by
+:func:`._solver.mlgk_solve`. Every tensor lives on the ``device`` given to
+the kernel. With ``eval_gradient=True`` each chunk also solves the tangent
+systems of every hyperparameter (forward mode, as the JAX package's
+``jax.jacfwd``), and the results carry d K / d theta on the linear scale.
+Non-nodal calls of 512 jobs or more run through a cached
+``GramFactory``, which keeps its plan across calls.
 """
 import copy
 import numbers
+import os
 import warnings
 from collections import namedtuple
 
@@ -43,6 +46,88 @@ def _tree_map(f, tree):
     return f(tree)
 
 
+class JobPlan:
+    """Pair jobs (i_jobs[k], j_jobs[k]) over one list of graphs, grouped by
+    padded-size class, each class packed once, every tensor on the
+    kernel's device.
+
+    With ``buckets`` (True, or ``'auto'`` when the graphs span more than one
+    class of ``node_align`` nodes) each class is packed on its own, else
+    all graphs form one batch. A job joins the group of its two classes,
+    the smaller first: a job whose first graph lies in the larger class is
+    solved as (j, i) and marked in ``swap``. Each group (a dict) holds the
+    two classes' device tensors (``bd1``, ``bd2``, ``pf1``, ``pf2``), the
+    local indices of its jobs on the device (``l1``, ``l2``), their places
+    in the job list (``pos``), ``swap``, and the padded sizes ``n1``,
+    ``n2`` and ``m_pad``.
+
+    The per-call path (:meth:`MarginalizedGraphKernel._solve_jobs`) builds
+    one a call and throws it away; ``graphdot_tpu_torch.inference.
+    GramFactory`` keeps one across hyperparameters. Both run its groups
+    through :meth:`solve`.
+    """
+
+    def __init__(self, kernel, graphs, i_jobs, j_jobs, buckets,
+                 node_align=8):
+        self.kernel = kernel
+        self.i_jobs = np.asarray(i_jobs, dtype=np.int64)
+        self.j_jobs = np.asarray(j_jobs, dtype=np.int64)
+        classes = kernel._size_classes(graphs, node_align)
+        if buckets == 'auto':
+            buckets = len(classes) > 1
+        if buckets:
+            members = [classes[c] for c in sorted(classes)]
+        else:
+            members = [list(range(len(graphs)))]
+        class_of = np.zeros(len(graphs), dtype=np.int64)
+        local_of = np.zeros(len(graphs), dtype=np.int64)
+        batches = []
+        for c, idx in enumerate(members):
+            class_of[idx] = c
+            local_of[idx] = np.arange(len(idx))
+            batches.append(kernel._prepare_batch(
+                [graphs[g] for g in idx], node_align))
+        self.n_classes = len(batches)
+
+        ca, cb = class_of[self.i_jobs], class_of[self.j_jobs]
+        swap = ca > cb
+        first = np.where(swap, self.j_jobs, self.i_jobs)
+        second = np.where(swap, self.i_jobs, self.j_jobs)
+        key = np.minimum(ca, cb) * len(batches) + np.maximum(ca, cb)
+        device = kernel.device
+        self.groups = []
+        for k in np.unique(key):
+            pos = np.flatnonzero(key == k)
+            (b1, bd1, pf1), (b2, bd2, pf2) = (
+                batches[c] for c in divmod(int(k), len(batches)))
+            self.groups.append({
+                'bd1': bd1, 'bd2': bd2, 'pf1': pf1, 'pf2': pf2,
+                'n1': b1.node_mask.shape[1], 'n2': b2.node_mask.shape[1],
+                'm_pad': max(b1.esrc.shape[1], b2.esrc.shape[1]),
+                'pos': pos, 'swap': swap[pos],
+                'l1': torch.as_tensor(local_of[first[pos]], device=device),
+                'l2': torch.as_tensor(local_of[second[pos]], device=device),
+            })
+
+    def chunks(self, grp, eval_gradient=False, nodal=False):
+        """The group's jobs as (start, local indices 1, local indices 2) in
+        chunks of :meth:`MarginalizedGraphKernel._chunk_size` pairs."""
+        chunk = self.kernel._chunk_size(max(grp['n1'], grp['n2']),
+                                        grp['m_pad'], eval_gradient, nodal)
+        for s in range(0, len(grp['pos']), chunk):
+            yield s, grp['l1'][s:s + chunk], grp['l2'][s:s + chunk]
+
+    def solve(self, theta, grp, nodal, lmin, eval_gradient=False,
+              maxiter=None, with_residual=False):
+        """Solve a group's jobs chunk by chunk; yields
+        :meth:`MarginalizedGraphKernel._solve_chunk`'s result for each."""
+        for _, idx1, idx2 in self.chunks(grp, eval_gradient, nodal):
+            yield self.kernel._solve_chunk(
+                theta, grp['bd1'], grp['bd2'], idx1, idx2, grp['pf1'],
+                grp['pf2'], nodal, lmin, eval_gradient, maxiter=maxiter,
+                with_residual=with_residual)
+
+
 class MarginalizedGraphKernel:
     """Implements the random-walk-based graph similarity kernel proposed
     in Kashima, Tsuda & Inokuchi (ICML 2003) and accelerated per Tang &
@@ -69,7 +154,9 @@ class MarginalizedGraphKernel:
     backend: 'auto', 'cuda', 'edge', 'dense', or a Backend instance.
         'auto' is 'cuda' on a CUDA device and 'edge' on the CPU.
     buckets: solve jobs in per-size-class batches instead of padding every
-        graph to the largest.
+        graph to the largest. Calls on the factory route (below) bucket by
+        size class whenever the graphs span more than one class, whatever
+        this option says, as the JAX package's route does.
     device: torch device (or its name) that every tensor follows; the
         card (``'cuda'``) unless the caller asks for ``'cpu'``. A CUDA
         device without a usable card raises: nothing falls back to the
@@ -141,6 +228,15 @@ class MarginalizedGraphKernel:
     # solver plumbing
     # ------------------------------------------------------------------
 
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        # cached factories hold device tensors
+        state.pop('_factory_cache', None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
     def _theta_vector(self):
         """Full linear-scale hyperparameter vector [p..., q, node...,
         edge...] as a float32 tensor on the kernel's device."""
@@ -154,12 +250,14 @@ class MarginalizedGraphKernel:
             lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
                 self.device), tree)
 
-    def _prepare_batch(self, graphs):
+    def _prepare_batch(self, graphs, node_align=8):
         """Pack ``graphs`` into one padded batch; returns (GraphBatch of
-        numpy arrays, dict of tensors on the device, p_fixed or None)."""
-        batch = batch_graphs(graphs)
+        numpy arrays, dict of tensors on the device, p_fixed or None). The
+        dense arrays are stacked in mode ``'dense'`` only."""
+        dense = self.backend.mode == 'dense'
+        batch = batch_graphs(graphs, node_align=node_align, dense=dense)
         fields = ['node_mask', 'degree', 'node_feats']
-        if self.backend.mode == 'dense':
+        if dense:
             fields += ['adj', 'edge_feats']
         else:
             fields += ['esrc', 'edst', 'ew', 'edge_elist_feats']
@@ -211,17 +309,24 @@ class MarginalizedGraphKernel:
         return ops
 
     def _solve_chunk(self, theta, bd1, bd2, idx1, idx2, pf1, pf2, nodal,
-                     lmin, eval_gradient=False):
+                     lmin, eval_gradient=False, maxiter=None,
+                     with_residual=False):
         """Solve one chunk of jobs; returns (R [P, n1, n2] (nodal) or the
         kernel values [P], and with ``eval_gradient`` d R / d theta
-        [P(, n1, n2), n_dims], else None), as float32 tensors."""
+        [P(, n1, n2), n_dims], else None), as float32 tensors; with
+        ``with_residual``, also the [P] relative residuals of the value
+        solves. ``maxiter`` defaults to :meth:`maxiter` of the padded
+        size."""
         ops = self._operands(bd1, bd2, idx1, idx2)
-        n_pad = max(bd1['node_mask'].shape[1], bd2['node_mask'].shape[1])
+        if maxiter is None:
+            maxiter = self.maxiter(max(bd1['node_mask'].shape[1],
+                                       bd2['node_mask'].shape[1]))
         n_p = len(list(flatten(self.p.theta)))
         out = mlgk_solve(
             theta, ops, knode=self.node_kernel, kedge=self.edge_kernel,
             n_p_theta=n_p, lmin=lmin, mode=self.backend.mode,
-            maxiter=self.maxiter(n_pad), tangents=eval_gradient
+            maxiter=maxiter, tangents=eval_gradient,
+            return_resnorm=with_residual
         )
         pf1 = None if pf1 is None else pf1[idx1]
         pf2 = None if pf2 is None else pf2[idx2]
@@ -242,10 +347,12 @@ class MarginalizedGraphKernel:
                 lambda t: weight_by_p(1.0, *weights(t)))(theta.detach())
             dR = out[3] * weight_by_p(1.0, p1, p2)[..., None] \
                 + x[..., None] * w_dot
-        if nodal:
-            return R, dR
-        return (torch.sum(R, dim=(1, 2)),
-                None if dR is None else torch.sum(dR, dim=(1, 2)))
+        if not nodal:
+            R = torch.sum(R, dim=(1, 2))
+            dR = None if dR is None else torch.sum(dR, dim=(1, 2))
+        if with_residual:
+            return R, dR, out[-1]
+        return R, dR
 
     @staticmethod
     def maxiter(n_pad):
@@ -277,23 +384,6 @@ class MarginalizedGraphKernel:
                 per_pair += n_pad * n_pad * n_theta
         return int(np.clip(budget // per_pair, 1, 4096))
 
-    def _run_chunks(self, theta, bd1, bd2, pf1, pf2, i_jobs, j_jobs, chunk,
-                    nodal, lmin, eval_gradient):
-        """Solve the jobs in chunks of at most ``chunk`` pairs; returns
-        the concatenated results as a numpy array, and the concatenated
-        gradients (None without ``eval_gradient``)."""
-        outs, grads = [], []
-        for s in range(0, len(i_jobs), chunk):
-            idx1 = torch.as_tensor(i_jobs[s:s + chunk], device=self.device)
-            idx2 = torch.as_tensor(j_jobs[s:s + chunk], device=self.device)
-            res, grad = self._solve_chunk(theta, bd1, bd2, idx1, idx2, pf1,
-                                          pf2, nodal, lmin, eval_gradient)
-            outs.append(res.cpu().numpy())
-            if eval_gradient:
-                grads.append(grad.cpu().numpy())
-        grad = np.concatenate(grads, axis=0) if eval_gradient else None
-        return np.concatenate(outs, axis=0), grad
-
     def _size_classes(self, graphs, align=8):
         """Partition graph indices into padded-size classes."""
         classes = {}
@@ -304,71 +394,38 @@ class MarginalizedGraphKernel:
 
     def _solve_jobs(self, graphs, i_jobs, j_jobs, nodal, lmin,
                     eval_gradient=False):
-        """Solve all (i, j) jobs; returns [P(,n1,n2)] numpy arrays, and with
-        ``eval_gradient`` a pair (values, [P(,n1,n2), n_dims] gradients).
-        With ``buckets`` on and heterogeneous sizes, jobs are grouped into
-        per-size-class batches so small pairs are not padded to the global
-        maximum."""
+        """Solve all (i, j) jobs; returns the [P(,n1,n2)] results, and with
+        ``eval_gradient`` a pair (values, [P(,n1,n2), n_dims] gradients),
+        as numpy: one array for values, lists of per-job arrays for nodal
+        results. The jobs run through a throw-away :class:`JobPlan`, by
+        size class with ``buckets`` on."""
         theta = self._theta_vector()
-        i_jobs = np.asarray(i_jobs, dtype=np.int64)
-        j_jobs = np.asarray(j_jobs, dtype=np.int64)
-
-        classes = self._size_classes(graphs) if self.buckets else None
-        if not classes or len(classes) <= 1:
-            batch, batch_dict, p_fixed = self._prepare_batch(graphs)
-            chunk = self._chunk_size(batch.node_mask.shape[1],
-                                     batch.esrc.shape[1], eval_gradient,
-                                     nodal)
-            out, grad = self._run_chunks(
-                theta, batch_dict, batch_dict, p_fixed, p_fixed,
-                i_jobs, j_jobs, chunk, nodal, lmin, eval_gradient
-            )
-            return (out, grad) if eval_gradient else out
-
-        # ---- bucketed path ----
-        class_of = np.empty(len(graphs), dtype=np.int64)
-        local_of = np.empty(len(graphs), dtype=np.int64)
-        batches = {}
-        for ck, members in classes.items():
-            for li, gi in enumerate(members):
-                class_of[gi] = ck
-                local_of[gi] = li
-            batches[ck] = self._prepare_batch(
-                [graphs[gi] for gi in members]
-            )
-
-        # group jobs by (class_a <= class_b); remember transposes
-        groups = {}
-        for p, (gi, gj) in enumerate(zip(i_jobs, j_jobs)):
-            ca, cb = class_of[gi], class_of[gj]
-            swap = ca > cb
-            key = (min(ca, cb), max(ca, cb))
-            a, b = (gj, gi) if swap else (gi, gj)
-            groups.setdefault(key, []).append(
-                (p, local_of[a], local_of[b], swap)
-            )
-
-        raw = [None] * len(i_jobs)
-        raw_grad = [None] * len(i_jobs) if eval_gradient else None
-        for (ca, cb), entries in groups.items():
-            _, bd1, pf1 = batches[ca]
-            batch_b, bd2, pf2 = batches[cb]
-            m_pad = max(
-                batches[ca][0].esrc.shape[1], batch_b.esrc.shape[1]
-            )
-            chunk = self._chunk_size(cb, m_pad, eval_gradient, nodal)
-            ps, l1, l2, swaps = map(np.asarray, zip(*entries))
-            out, grad = self._run_chunks(
-                theta, bd1, bd2, pf1, pf2, l1, l2, chunk, nodal, lmin,
-                eval_gradient
-            )
-            for k, p in enumerate(ps):
+        plan = JobPlan(self, graphs, i_jobs, j_jobs, self.buckets)
+        P = len(plan.i_jobs)
+        raw = [None] * P if nodal else np.empty(P)
+        raw_grad = None
+        if eval_gradient:
+            raw_grad = [None] * P if nodal else np.empty((P, self.n_dims))
+        for grp in plan.groups:
+            outs, grads = [], []
+            for res, grad in plan.solve(theta, grp, nodal, lmin,
+                                        eval_gradient):
+                outs.append(res.cpu().numpy())
+                if eval_gradient:
+                    grads.append(grad.cpu().numpy())
+            out = np.concatenate(outs, axis=0)
+            grad = np.concatenate(grads, axis=0) if eval_gradient else None
+            if not nodal:
+                raw[grp['pos']] = out
+                if eval_gradient:
+                    raw_grad[grp['pos']] = grad
+                continue
+            for k, p in enumerate(grp['pos']):
                 o = out[k]
                 g = grad[k] if eval_gradient else None
-                if swaps[k] and nodal:
+                if grp['swap'][k]:   # the job was solved as R[gj, gi]
                     o = np.swapaxes(o, 0, 1)
-                    if g is not None:
-                        g = np.swapaxes(g, 0, 1)
+                    g = None if g is None else np.swapaxes(g, 0, 1)
                 raw[p] = o
                 if eval_gradient:
                     raw_grad[p] = g
@@ -387,6 +444,84 @@ class MarginalizedGraphKernel:
                 f'First graph: {first}\n'
                 f'Second graph: {second}\n'
             )
+
+    # ------------------------------------------------------------------
+    # the factory route: non-nodal calls of many jobs run through a
+    # cached GramFactory, which packs the graphs once
+    # ------------------------------------------------------------------
+
+    #: minimum job count before a non-nodal ``__call__`` routes through a
+    #: cached factory. ``GRAPHDOT_API_UNION=0`` turns the route off, ``=1``
+    #: takes it at any size, an integer sets the threshold. The value is
+    #: the JAX package's, where it pays back a factory's own compile. The
+    #: port's factory compiles nothing, but it solves each size-class
+    #: group in chunks of its own, and below a few hundred jobs those
+    #: extra chunks cost more host time than packing once saves: on the
+    #: card both routes' times at 136 and 496 jobs are in ``PERF.md``.
+    _API_UNION_MIN_JOBS = 512
+
+    def _get_call_factory(self, X, Y):
+        """The cached :class:`~graphdot_tpu_torch.inference.GramFactory`
+        over the graph lists. An entry is dropped when any of its graphs
+        mutated (``Graph.permute`` and ``unify_datatype`` clear the cookie
+        that holds the entry's token); four entries are kept, the oldest
+        dropped first."""
+        from ...inference.gram import GramFactory
+
+        cache = self.__dict__.setdefault('_factory_cache', {})
+        key = (tuple(map(id, X)),
+               None if Y is None else tuple(map(id, Y)),
+               self.backend.mode)
+        all_graphs = list(X) + (list(Y) if Y is not None else [])
+        entry = cache.get(key)
+        if entry is not None:
+            factory, token = entry
+            if all(g.cookie.get(('apifac', key)) is token
+                   for g in all_graphs):
+                return factory
+            del cache[key]
+        self._check_types(all_graphs)
+        factory = GramFactory(self, list(X), normalize=False,
+                              graphs2=None if Y is None else list(Y))
+        token = object()
+        for g in all_graphs:
+            g.cookie[('apifac', key)] = token
+        cache[key] = (factory, token)
+        while len(cache) > 4:
+            del cache[next(iter(cache))]
+        return factory
+
+    def _factory_call(self, X, Y, eval_gradient, lmin):
+        """A non-nodal call through the cached factory: (K, dK on the
+        linear scale or None) as numpy, or None where the route declines
+        (``GRAPHDOT_API_UNION``, fewer jobs than the threshold, or mode
+        ``'dense'``)."""
+        v = os.environ.get('GRAPHDOT_API_UNION', 'auto').strip().lower()
+        if v in ('0', 'false', 'off', 'no'):
+            return None
+        if v in ('auto', ''):
+            min_jobs = self._API_UNION_MIN_JOBS
+        elif v in ('1', 'true', 'on', 'yes'):
+            min_jobs = 0
+        else:
+            min_jobs = int(v)
+        if self.backend.mode not in ('cuda', 'edge'):
+            return None
+        nX = len(X)
+        n_jobs = nX * (nX + 1) // 2 if Y is None else nX * len(Y)
+        if n_jobs < min_jobs:
+            return None
+
+        factory = self._get_call_factory(X, Y)
+        th_lin = self.flat_hyperparameters[self.active_theta_mask]
+        out = factory.gram(np.log(th_lin), lmin=int(lmin),
+                           eval_gradient=eval_gradient)
+        if eval_gradient:
+            K, dK = out
+            # the factory's dK is in log theta; the call's is linear
+            return (K.cpu().numpy(),
+                    dK.cpu().numpy() / th_lin[None, None, :])
+        return out.cpu().numpy(), None
 
     # ------------------------------------------------------------------
     # public API
@@ -410,8 +545,29 @@ class MarginalizedGraphKernel:
         Returns
         -------
         kernel_matrix: ndarray; plus the gradient ndarray if eval_gradient.
+
+        A non-nodal call of at least ``_API_UNION_MIN_JOBS`` pair jobs runs
+        through a cached :class:`~graphdot_tpu_torch.inference.GramFactory`
+        over X (and Y), which packs the graphs once (``GRAPHDOT_API_UNION``
+        sets the threshold). Its gradient's tangent systems, like every
+        gradient of the port, run at ``gtol``. A failure there raises: no
+        call falls back to the per-pair route.
         """
         timer = Timer()
+        if not nodal:
+            # before the type check: a cache hit proves the graphs were
+            # checked when the factory was built and have not changed
+            timer.tic('factory route')
+            routed = self._factory_call(X, Y, eval_gradient, lmin)
+            timer.toc('factory route')
+            if routed is not None:
+                if timing:
+                    timer.report(unit='ms')
+                K, dK = routed
+                if eval_gradient:
+                    return (K.astype(self.element_dtype),
+                            dK.astype(self.element_dtype))
+                return K.astype(self.element_dtype)
         all_graphs = list(X) + (list(Y) if Y is not None else [])
         self._check_types(all_graphs)
 
@@ -645,7 +801,11 @@ class MarginalizedGraphKernel:
         return np.log(self._bounds_table()[self.active_theta_mask])
 
     def clone_with_theta(self, theta=None):
-        clone = copy.deepcopy(self)
+        """A deep copy, at ``theta`` when given, that shares this kernel's
+        factory cache: a factory takes the active hyperparameters as an
+        argument and keeps only the fixed ones."""
+        clone = copy.deepcopy(self)   # __getstate__ leaves the cache out
+        clone._factory_cache = self.__dict__.setdefault('_factory_cache', {})
         if theta is not None:
             clone.theta = theta
         return clone

@@ -311,11 +311,10 @@ def _plain_offdiag(system, mode, k):
     return functools.partial(gather_offdiag, T, *edges)
 
 
-def _plain_solve(system, mode, b, tol, maxiter):
-    """Solve ``A x = b`` for b [P, k, n1, n2] (k right-hand sides a pair)
-    by the plain batched :func:`pcg` of modes ``'edge'`` and ``'dense'``,
-    every one of the P * k systems to its pair's tol."""
-    P, k, n1, n2 = b.shape
+def _plain_matvec(system, mode, k=1):
+    """``y -> A y`` over y [P * k, n1 * n2], k systems a pair, each with its
+    pair's operator, by the plain modes' off-diagonal matvec."""
+    P, n1, n2 = system['diag'].shape
     N = n1 * n2
     offdiag = _plain_offdiag(system, mode, k)
     diag_flat = _repeat(system['diag'].reshape(P, N), k)
@@ -323,11 +322,22 @@ def _plain_solve(system, mode, b, tol, maxiter):
     def matvec(y):
         return diag_flat * y - offdiag(y.view(P * k, n1, n2)).reshape(
             P * k, N)
+    return matvec
 
-    x = pcg(matvec, b.reshape(P * k, N),
-            _repeat(system['precond'].reshape(P, N), k), _repeat(tol, k),
-            maxiter)
-    return x.view(P, k, n1, n2)
+
+def _plain_solve(system, mode, b, tol, maxiter, return_iters=False):
+    """Solve ``A x = b`` for b [P, k, n1, n2] (k right-hand sides a pair)
+    by the plain batched :func:`pcg` of modes ``'edge'`` and ``'dense'``,
+    every one of the P * k systems to its pair's tol. With
+    ``return_iters``, also the [P * k] step counts."""
+    P, k, n1, n2 = b.shape
+    N = n1 * n2
+    out = pcg(_plain_matvec(system, mode, k), b.reshape(P * k, N),
+              _repeat(system['precond'].reshape(P, N), k), _repeat(tol, k),
+              maxiter, return_iters=return_iters)
+    if return_iters:
+        return out[0].view(P, k, n1, n2), out[1]
+    return out.view(P, k, n1, n2)
 
 
 def _detached(system):
@@ -460,7 +470,7 @@ def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode):
 
 
 def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
-               maxiter, tangents=False):
+               maxiter, tangents=False, return_resnorm=False):
     """Solve a batch of graph-pair MLGK systems (see :func:`mlgk_setup`
     for the arguments; ``lmin`` is 0 or 1, ``maxiter`` the CG step bound).
 
@@ -472,12 +482,18 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     ranges named ``mlgk_setup``, ``mlgk_value_solve``, ``mlgk_tangents``
     and ``mlgk_tangent_solve``.
 
+    ``return_resnorm`` adds each pair's relative residual ``||b - A x|| /
+    ||b||`` of the value solve, by one plain matvec on x (converged float32
+    solves sit near 1e-7..1e-5; far above that, ``maxiter`` cut the solve
+    short).
+
     Returns
     -------
     x: [P, n1, n2] solution of the product-graph system (zero on padding)
     Vx: [P, n1, n2] node-kernel diagonal
     valid: [P, n1, n2] product-space validity mask
     x_dot: [P, n1, n2, n_theta] d x / d theta (only with ``tangents``)
+    resnorm: [P] relative residuals (only with ``return_resnorm``)
     """
     record = torch.profiler.record_function
     with record('mlgk_setup'):
@@ -486,6 +502,15 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     Vx, valid = s['Vx'], s['valid']
     with record('mlgk_value_solve'):
         x = solve_linear(s, mode, maxiter)
+    resnorm = None
+    if return_resnorm:
+        sd = _detached(s)
+        P = x.shape[0]
+        b = sd['b'].reshape(P, -1)
+        leftover = torch.linalg.vector_norm(
+            b - _plain_matvec(sd, mode)(x.detach().reshape(P, -1)), dim=-1)
+        scale = torch.linalg.vector_norm(b, dim=-1)
+        resnorm = leftover / torch.where(scale > 0, scale, 1.0)
 
     x_dot = None
     if tangents:
@@ -514,9 +539,12 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     if lmin == 1:
         # skip the l=0 term of the random-walk sum
         x = x - torch.where(valid > 0, Vx, 0.0)
+    out = (x, Vx, valid)
     if tangents:
-        return x, Vx, valid, x_dot
-    return x, Vx, valid
+        out += (x_dot,)
+    if return_resnorm:
+        out += (resnorm,)
+    return out
 
 
 def weight_by_p(x, p1, p2):

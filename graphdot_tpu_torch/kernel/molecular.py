@@ -74,6 +74,8 @@ class Tang2019MolecularKernel:
         return self.kernel.bounds
 
     def clone_with_theta(self, theta):
-        twin = copy.deepcopy(self)
-        twin.theta = theta
+        """A copy at ``theta``; the graph kernel's clone shares its factory
+        cache."""
+        twin = copy.copy(self)
+        twin.kernel = self.kernel.clone_with_theta(theta)
         return twin

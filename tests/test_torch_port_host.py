@@ -57,6 +57,12 @@ def test_port_imports_nothing_of_the_jax_package():
         '    device="cpu")\n'
         'K = Normalization(k)(random_molecule_set(0, 3, (5, 8)))\n'
         'assert K.shape == (3, 3)\n'
+        'from graphdot_tpu_torch.inference import GramFactory\n'
+        'from graphdot_tpu_torch.model.gaussian_process import (\n'
+        '    GaussianProcessRegressor)\n'
+        'f = GramFactory(k, random_molecule_set(0, 3, (5, 8)))\n'
+        'assert f.gram(f.theta0).shape == (3, 3)\n'
+        'assert GaussianProcessRegressor(k).device == "cuda"\n'
         'bad = sorted(m for m in sys.modules\n'
         '             if m == "graphdot_tpu" or m.startswith("graphdot_tpu.")\n'
         '             or m == "jax" or m.startswith(("jax.", "jaxlib")))\n'
