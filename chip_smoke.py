@@ -24,6 +24,11 @@ Drives the port's paths once each through their public entry points,
 - the GP fit: ``GaussianProcessRegressor`` with L-BFGS-B on the 128
   molecules, every objective evaluation a Gram and its jacobian through one
   factory (``pcg_resident`` and ``pcg_packed``), then a prediction;
+- the protein classes of ``bench_protein.py`` (150-300, 400-600 and
+  800-1000 residues, none cut), whose pairs take the sum-of-Kronecker route
+  (two cuBLAS products a CG step over Chebyshev factors, no T) or
+  ``pcg_stream``, by the rule of ``_solver.solve_route`` and
+  ``KRON_MIN_N``;
 
 and checks every part of them:
 
@@ -136,9 +141,37 @@ and checks every part of them:
     ``tests/fixtures/torch_port_gpr_ref.npz``; the evaluations, the fit's
     wall, the wall and the launches an evaluation; one profiled
     evaluation, and the factory's Gram and jacobian timed against the
-    float64 objective and its chain rule (medians of 5, in turns).
+    float64 objective and its chain rule (medians of 5, in turns);
+16. the protein classes of ``bench_protein.py`` (``random_protein_set(7,
+    11, (150, 300))``, ``(8, 6, (400, 600))``, ``(9, 4, (800, 1000))``;
+    its kernel, ``SquareExponential(3.0)`` on length, q = 0.05,
+    normalized), each through ``GramFactory(buckets=False)`` with
+    ``backend='kron'`` (ranks calibrated), with ``backend='cuda'`` and
+    ``kron_ranks='off'`` (``pcg_stream``), and with ``'auto'``: every Gram
+    finite, symmetric and of unit diagonal to 1e-6; kron within 1e-6
+    (``KRON_LIMIT``) of ``pcg_stream``; the kron route launches no
+    ``pcg_*`` kernel (one ``kron_pcg`` solve a chunk), the stream route
+    ``pcg_stream`` once a chunk and nothing else; ``'auto'`` launches the
+    route that the rule names (and the per-pair ``__call__`` of the
+    150-300 class too); ``pcg_stream`` against ``pcg_stream_reference`` on
+    each class's first chunk, max |dx| <= 1e-5 * max |x|; CG steps, ranks,
+    factorization error, the bytes each route holds, value walls in turns
+    (medians of 3) and one profiled build of each route (device time in
+    the products and in the rest, beside the products' float32 bound); for
+    150-300 the gradient Gram by both routes, dK within 1e-5, walls in
+    turns, and a control: the kron products with TF32 on must miss
+    ``KRON_LIMIT`` on K; then the sets of ``ROUTE_LADDER`` below the
+    classes (phase 8's 48-72-atom molecules, proteins of 40-64 to 150-290
+    residues), each by both routes and ``'auto'``, agreement, launches and
+    value walls in turns, where ``KRON_MIN_N``'s crossover lies; the JAX
+    kron fixture ``tests/fixtures/torch_port_kron_ref.npz`` within 1e-4
+    (K) and 5e-3 (dK), the JAX tests' tolerances.
 
-Prints the kernel summary as one JSON line (each kernel's wrapper time
+Prints ``KRON_MIN_N`` beside the phase 16 walls it follows (a route is
+faster on a set when every timed build of it beat every build of the
+other), one JSON line;
+the kron route table, one JSON line (a row a class); the kernel summary as
+one JSON line (each kernel's wrapper time
 and device time beside its bound: the larger of the bytes of its inputs
 and outputs over 3.35 TB/s
 and the float32 operations of the CG steps it ran, over the live edges,
@@ -155,6 +188,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -163,6 +197,7 @@ ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_gram_ref.npz'
 GRAD_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_grad_ref.npz'
 PROTEIN_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_protein_ref.npz'
+KRON_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_kron_ref.npz'
 GPR_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_gpr_ref.npz'
 #: the GP fit of phase 15: bench_nuts.py's alpha, L-BFGS-B's tol, and the
 #: step of the central differences in log theta. The float32 Gram leaves
@@ -174,6 +209,29 @@ BUILD_REPEATS = 5     # timed molecule Gram builds
 PROTEIN_REPEATS = 3   # timed protein Gram builds
 #: the protein slice: protein_niche_set(seed, n, residue range)
 PROTEINS = (13, 6, (180, 280))
+#: bench_protein.py's classes: (label, random_protein_set(seed, n, range))
+PROTEIN_CLASSES = (('150-300', 7, 11, (150, 300)),
+                   ('400-600', 8, 6, (400, 600)),
+                   ('800-1000', 9, 4, (800, 1000)))
+KRON_REPEATS = 3      # timed Gram builds of each route, in turns
+#: the card's limits on kron against pcg_stream, on K and on dK: both
+#: routes run in float32 (the kron products with TF32 off) and the
+#: factorization is calibrated to 1e-6 on k_edge. On K, TF32 products
+#: miss KRON_LIMIT (the control of phase 16); the JAX fixture keeps the
+#: JAX tests' 1e-4 and 5e-3
+KRON_LIMIT, KRON_GRAD_LIMIT = 1e-6, 1e-5
+#: sets below bench_protein.py's classes, each Gram by kron and by
+#: pcg_stream, where KRON_MIN_N's crossover is looked for: (label, kind,
+#: seed, graphs, size range); proteins are random_protein_set's, molecules
+#: random_molecule_set's (phase 8's large molecules, length-only edge
+#: kernel, kron-eligible)
+ROUTE_LADDER = (('molecules 48-72', 'molecules', 7, 32, (48, 72)),
+                ('proteins 40-64', 'proteins', 21, 11, (40, 64)),
+                ('proteins 60-100', 'proteins', 22, 11, (60, 100)),
+                ('proteins 80-130', 'proteins', 25, 11, (80, 130)),
+                ('proteins 100-160', 'proteins', 26, 11, (100, 160)),
+                ('proteins 100-200', 'proteins', 23, 11, (100, 200)),
+                ('proteins 150-290', 'proteins', 24, 11, (150, 290)))
 TPU_KERNEL = 'graphdot_tpu/ops/pallas_pcg.py:300'          # _pcg_kernel
 TPU_STREAM_KERNEL = 'graphdot_tpu/ops/pallas_pcg.py:567'   # _pcg_stream_kernel
 TPU_PACK_KERNEL = 'graphdot_tpu/ops/pallas_pcg.py:310'     # _pcg_pack_kernel
@@ -330,7 +388,8 @@ def pcg_bound(args, x, steps):
 
 def profile_build(build, what):
     """One profiled call of ``build`` (a Gram): wall time, device busy
-    share, device time by kernel, host time in the solver's phases."""
+    share, device time by kernel, host time in the solver's phases.
+    Returns (wall ms, {kernel name: device ms})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -366,6 +425,7 @@ def profile_build(build, what):
     for name in ('mlgk_setup', 'mlgk_value_solve', 'mlgk_tangents',
                  'mlgk_tangent_solve'):
         say(f'    host {host.get(name, 0.0) / 1e3:9.3f} ms in {name}')
+    return wall_us / 1e3, {name: us / 1e3 for name, us in device.items()}
 
 
 @contextlib.contextmanager
@@ -548,6 +608,411 @@ def gp_phase(graphs, held, make_kernel):
     return launches
 
 
+def gemm_split(device):
+    """(device ms in the matrix products, in everything else) of a profiled
+    build's {kernel name: device ms}: cuBLAS names its kernels ``*gemm*``."""
+    gemm = sum(ms for name, ms in device.items() if 'gemm' in name.lower())
+    return gemm, sum(device.values()) - gemm
+
+
+def held_bytes(build):
+    """The device bytes a call of ``build`` holds at its peak, above what
+    was allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def kron_phase():
+    """Phase 16: the protein classes of ``bench_protein.py`` on the card,
+    each Gram by the kron route and by ``pcg_stream``, and by the rule's own
+    route (``'auto'``); the 150-300 class's gradient Gram by both routes; the
+    JAX kron fixture. Returns (one row a class for the kron route table,
+    pcg_stream's launches in the classes' first stream builds, the
+    KRON_MIN_N line)."""
+    import torch
+    from graphdot_tpu_torch.inference import GramFactory
+    from graphdot_tpu_torch.kernel import (
+        MarginalizedGraphKernel, Normalization)
+    from graphdot_tpu_torch.kernel.marginalized import _kron, _solver
+    from graphdot_tpu_torch.kernel.marginalized._solver import mlgk_setup
+    from graphdot_tpu_torch.microkernel import (
+        KroneckerDelta, SquareExponential, TensorProduct)
+    from graphdot_tpu_torch.ops.pcg import (pcg_packed, pcg_resident,
+                                            pcg_stream, pcg_stream_reference)
+    from graphdot_tpu_torch.testing import (random_molecule_set,
+                                            random_protein_set)
+
+    counters = {'pcg_resident': pcg_resident, 'pcg_packed': pcg_packed,
+                'pcg_stream': pcg_stream, 'kron': _kron.kron_pcg}
+
+    def kern(backend, length_scale=3.0):
+        """bench_protein.py:125-130's kernel (the molecules' length scale
+        is phase 2's, 0.3)."""
+        return MarginalizedGraphKernel(
+            TensorProduct(element=KroneckerDelta(0.2)),
+            TensorProduct(length=SquareExponential(length_scale)), q=0.05,
+            device='cuda', backend=backend)
+
+    @contextlib.contextmanager
+    def tf32_products():
+        """The control of KRON_LIMIT: the kron products with TF32 on, the
+        precision that the port's kron route excludes."""
+        old = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = old
+
+    def counted(call):
+        """call()'s result and the launches of every route during it."""
+        for c in counters.values():
+            c.launches = 0
+        out = call()
+        torch.cuda.synchronize()
+        return out, {name: c.launches for name, c in counters.items()}
+
+    def check_gram(K, what):
+        """Finite, symmetric and a unit diagonal to float32 rounding (the
+        factory divides K_ij by sqrt(K_ii) and sqrt(K_jj) in turn)."""
+        K = K.cpu().numpy()
+        n = K.shape[0]
+        sym, diag = (float(np.abs(K - K.T).max()),
+                     float(np.abs(np.diag(K) - 1).max()))
+        check(K.shape == (n, n) and bool(np.isfinite(K).all())
+              and sym <= 1e-6 and diag <= 1e-6,
+              f'{what}: K finite, symmetric (max |K - K^T| = {sym:.1e}), '
+              f'unit diagonal (max |K_ii - 1| = {diag:.1e})')
+        return K
+
+    def walls(builds, reps):
+        """``reps`` walls of each build, in turns: (their medians, the
+        walls)."""
+        times = {name: [] for name in builds}
+        for rep in range(reps):
+            order = list(builds) if rep % 2 == 0 else list(builds)[::-1]
+            for name in order:
+                t0 = time.perf_counter()
+                builds[name]()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        for name, ts in times.items():
+            say(f'    {name}: median {np.median(ts):.3f} ms over {reps} '
+                f'({", ".join(f"{t:.3f}" for t in ts)})')
+        return ({name: float(np.median(ts)) for name, ts in times.items()},
+                times)
+
+    rows, stream_launches = [], 0
+    for label, seed, n, residues in PROTEIN_CLASSES:
+        say(f'  -- class {label}: random_protein_set({seed}, {n}, '
+            f'{residues})')
+        graphs = random_protein_set(seed, n, residues)
+        fk = GramFactory(kern('kron'), graphs, buckets=False)
+        fs = GramFactory(kern('cuda'), graphs, buckets=False,
+                         kron_ranks='off')
+        fa = GramFactory(kern('auto'), graphs, buckets=False)
+        theta0 = fk.theta0
+        grp = fk._plan.groups[0]
+        n_pad, m_pad = grp['n1'], grp['m_pad']
+        plan = fk._plan.kron
+        R = int(np.prod(plan.ranks))
+        pairs = n * (n + 1) // 2
+        say(f'  {len(graphs)} graphs of {min(len(g.nodes) for g in graphs)}'
+            f'-{max(len(g.nodes) for g in graphs)} residues, {pairs} pairs '
+            f'padded to n = {n_pad}, m = {m_pad}; kron ranks {plan.ranks}, '
+            f'factorization error {plan.err:.3e} on the domain '
+            f'{plan.domain}')
+        check(fs._plan.route(fs._plan.groups[0]) == 'stream'
+              and fk._plan.route(grp) == 'kron',
+              "the routes: kron_ranks='off' streams, backend 'kron' takes "
+              'kron')
+        K_kron, launches = counted(lambda: fk.gram(theta0))
+        kron_chunks = sum(1 for _ in fk._plan.chunks(grp))
+        check(launches['kron'] == kron_chunks and all(
+            v == 0 for k, v in launches.items() if k != 'kron'),
+            f'kron route: {launches}, one kron solve a chunk '
+            f'({kron_chunks}), no pcg_* kernel')
+        K_stream, launches = counted(lambda: fs.gram(theta0))
+        stream_chunks = sum(1 for _ in fs._plan.chunks(fs._plan.groups[0]))
+        stream_launches += launches['pcg_stream']
+        check(launches['pcg_stream'] == stream_chunks and all(
+            v == 0 for k, v in launches.items() if k != 'pcg_stream'),
+            f'stream route: {launches}, pcg_stream once a chunk '
+            f'({stream_chunks}), nothing else')
+        K_kron = check_gram(K_kron, 'kron')
+        K_stream = check_gram(K_stream, 'pcg_stream')
+        err = float(np.abs(K_kron - K_stream).max())
+        check(err <= KRON_LIMIT,
+              f'max |K_kron - K_stream| = {err:.3e} <= {KRON_LIMIT}')
+        named = fa._plan.route(fa._plan.groups[0])
+        K_auto, launches = counted(lambda: fa.gram(theta0))
+        ran = [k for k, v in launches.items() if v]
+        check(ran == [{'kron': 'kron', 'stream': 'pcg_stream'}[named]],
+              f"backend 'auto': the rule names {named} (KRON_MIN_N = "
+              f'{_solver.KRON_MIN_N}, n1 n2 = {n_pad * n_pad}), and '
+              f'{ran} launched')
+        auto_err = float(np.abs(K_auto.cpu().numpy() - K_stream).max())
+        check(auto_err <= KRON_LIMIT,
+              f"backend 'auto': max |K - K_stream| = {auto_err:.3e} <= "
+              f'{KRON_LIMIT}')
+        if label == '150-300':
+            K_call, launches = counted(lambda: Normalization(kern('auto'))(
+                graphs))
+            ran_call = [k for k, v in launches.items() if v]
+            call_err = float(np.abs(K_call - K_stream).max())
+            check(ran_call == ran and call_err <= KRON_LIMIT,
+                  f'the per-pair __call__ ({pairs} jobs) takes the same '
+                  f'route, {ran_call}: max |K - K_stream| = {call_err:.3e} '
+                  f'<= {KRON_LIMIT}')
+        kron_steps = np.concatenate(
+            [s['iters'] for s in fk.iteration_stats(theta0)])
+        stream_steps = []
+        sgrp = fs._plan.groups[0]
+        for c, (_, idx1, idx2) in enumerate(fs._plan.chunks(sgrp)):
+            k = fs.kernel
+            sd = mlgk_setup(torch.as_tensor(fs._full0, dtype=torch.float32,
+                                            device=k.device),
+                            k._operands(sgrp['bd1'], sgrp['bd2'], idx1, idx2),
+                            knode=k.node_kernel, kedge=k.edge_kernel,
+                            n_p_theta=1, mode='cuda')
+            args = (sd['T'], sd['esrc_1'], sd['edst_1'], sd['esrc_2'],
+                    sd['edst_2'], sd['diag'].contiguous(),
+                    sd['precond'].contiguous(), sd['b'].contiguous(),
+                    sd['tol'], fs._group_maxiter(sgrp))
+            x, iters = pcg_stream(*args)
+            stream_steps.append(iters.cpu().numpy())
+            if c == 0:
+                # the kernel against its plain twin on this class's first
+                # chunk, the shapes and CTA split of the stream route
+                x_r, _ = pcg_stream_reference(*args)
+                scale = float(x_r.abs().max())
+                twin_err = float((x - x_r).abs().max())
+                check(bool(torch.isfinite(x).all())
+                      and twin_err <= 1e-5 * scale,
+                      f'pcg_stream against pcg_stream_reference on the first '
+                      f'chunk ({len(idx1)} pairs, '
+                      f'{pcg_stream.last_ctas_per_pair} CTAs a pair): max '
+                      f'|dx| = {twin_err:.3e} <= 1e-5 * max |x| = '
+                      f'{1e-5 * scale:.3e}')
+                del x_r
+            del sd, args, x
+        stream_steps = np.concatenate(stream_steps)
+        say(f'  CG steps: kron mean {kron_steps.mean():.3f} max '
+            f'{kron_steps.max()}, pcg_stream mean {stream_steps.mean():.3f} '
+            f'max {stream_steps.max()}')
+        flops = float((kron_steps.astype(float) * 2 * R * n_pad * n_pad
+                       * 2 * n_pad).sum())
+        bound_ms = flops / FP32_OPS_PER_S * 1e3
+        kron_bytes = held_bytes(lambda: fk.gram(theta0))
+        stream_bytes = held_bytes(lambda: fs.gram(theta0))
+        say(f'  held at the peak: kron {kron_bytes / 1e9:.3f} GB, '
+            f'pcg_stream {stream_bytes / 1e9:.3f} GB')
+        say('  value Gram walls, in turns:')
+        w, w_all = walls({'kron': lambda: fk.gram(theta0),
+                          'pcg_stream': lambda: fs.gram(theta0)},
+                         KRON_REPEATS)
+        k_wall, k_dev = profile_build(lambda: fk.gram(theta0),
+                                      f'kron {label}')
+        s_wall, s_dev = profile_build(lambda: fs.gram(theta0),
+                                      f'pcg_stream {label}')
+        gemm, other = gemm_split(k_dev)
+        row = {'class': label, 'pairs': pairs, 'n_pad': n_pad,
+               'm_pad': m_pad, 'n1n2': n_pad * n_pad,
+               'ranks': list(plan.ranks), 'factorization_error': plan.err,
+               'kron_chunks': kron_chunks, 'stream_chunks': stream_chunks,
+               'kron_steps_mean': float(kron_steps.mean()),
+               'kron_steps_max': int(kron_steps.max()),
+               'stream_steps_mean': float(stream_steps.mean()),
+               'stream_steps_max': int(stream_steps.max()),
+               'kron_wall_ms': w['kron'], 'stream_wall_ms': w['pcg_stream'],
+               'kron_walls_ms': w_all['kron'],
+               'stream_walls_ms': w_all['pcg_stream'],
+               'kron_device_gemm_ms': gemm, 'kron_device_other_ms': other,
+               'kron_profiled_wall_ms': k_wall,
+               'stream_device_ms': sum(s_dev.values()),
+               'stream_device_pcg_ms': sum(
+                   v for name, v in s_dev.items() if 'pcg_' in name),
+               'stream_profiled_wall_ms': s_wall,
+               'kron_flop_bound_ms': bound_ms, 'kron_bytes': kron_bytes,
+               'stream_bytes': stream_bytes, 'max_abs_err': err,
+               'stream_twin_err': twin_err, 'auto_route': named}
+        say(f'  kron: device {gemm:.3f} ms in the products, {other:.3f} ms '
+            f'in the rest (setup, CG vectors); float32 bound of the products '
+            f'{bound_ms:.3f} ms at 67 TFLOP/s')
+        if label == '150-300':
+            KG_kron, dK_kron = fk.gram(theta0, eval_gradient=True)
+            KG_stream, dK_stream = fs.gram(theta0, eval_gradient=True)
+            dK_kron, dK_stream = dK_kron.cpu().numpy(), \
+                dK_stream.cpu().numpy()
+            saved = _kron._fp32_matmul
+            _kron._fp32_matmul = tf32_products
+            try:
+                K_tf32 = fk.gram(theta0).cpu().numpy()
+                dK_tf32 = fk.gram(theta0, eval_gradient=True)[1].cpu().numpy()
+            finally:
+                _kron._fp32_matmul = saved
+            tf32_err = float(np.abs(K_tf32 - K_stream).max())
+            tf32_gerr = float(np.abs(dK_tf32 - dK_stream).max())
+            row['tf32_control_err'] = tf32_err
+            row['tf32_control_grad_err'] = tf32_gerr
+            check(tf32_err > KRON_LIMIT,
+                  f'control: kron with TF32 products misses the limit, max '
+                  f'|K - K_stream| = {tf32_err:.3e} > {KRON_LIMIT} (max |dK '
+                  f'- dK_stream| = {tf32_gerr:.3e})')
+            check(bool(np.isfinite(dK_kron).all()
+                       and np.isfinite(dK_stream).all()),
+                  'gradient Grams: dK finite on both routes')
+            gerr = float(np.abs(dK_kron - dK_stream).max())
+            check(gerr <= KRON_GRAD_LIMIT, f'max |dK_kron - dK_stream| = '
+                  f'{gerr:.3e} <= {KRON_GRAD_LIMIT}')
+            check(float(np.abs(KG_kron.cpu().numpy() - K_kron).max()) <= 1e-6,
+                  'the gradient build\'s K is the value build\'s')
+            _, launches = counted(lambda: fk.gram(theta0, eval_gradient=True))
+            check(launches['kron'] >= 2 and all(
+                v == 0 for k, v in launches.items() if k != 'kron'),
+                f'kron gradient: {launches}, no pcg_* kernel')
+            _, launches = counted(lambda: fs.gram(theta0, eval_gradient=True))
+            check(launches['pcg_stream'] >= 2 and all(
+                v == 0 for k, v in launches.items() if k != 'pcg_stream'),
+                f'stream gradient: {launches} (values and tangents), '
+                'nothing else')
+            say('  gradient Gram walls, in turns:')
+            gw, _ = walls({
+                'kron': lambda: fk.gram(theta0, eval_gradient=True),
+                'pcg_stream': lambda: fs.gram(theta0, eval_gradient=True)},
+                KRON_REPEATS)
+            gk_wall, gk_dev = profile_build(
+                lambda: fk.gram(theta0, eval_gradient=True),
+                f'kron gradient {label}')
+            gs_wall, gs_dev = profile_build(
+                lambda: fs.gram(theta0, eval_gradient=True),
+                f'pcg_stream gradient {label}')
+            ggemm, gother = gemm_split(gk_dev)
+            row['gradient'] = {
+                'kron_wall_ms': gw['kron'], 'stream_wall_ms': gw['pcg_stream'],
+                'kron_device_gemm_ms': ggemm, 'kron_device_other_ms': gother,
+                'stream_device_ms': sum(gs_dev.values()),
+                'kron_bytes': held_bytes(
+                    lambda: fk.gram(theta0, eval_gradient=True)),
+                'stream_bytes': held_bytes(
+                    lambda: fs.gram(theta0, eval_gradient=True)),
+                'max_abs_err': gerr}
+        rows.append(row)
+        del fk, fs, fa
+        torch.cuda.empty_cache()
+
+    say('  -- below the classes: where the crossover of KRON_MIN_N lies')
+    ladder = []
+    for label, kind, seed, n, sizes in ROUTE_LADDER:
+        if kind == 'proteins':
+            graphs, scale = random_protein_set(seed, n, sizes), 3.0
+        else:
+            graphs = random_molecule_set(seed, n, n_atoms_range=sizes)
+            scale = 0.3
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            fk = GramFactory(kern('kron', scale), graphs, buckets=False)
+        fs = GramFactory(kern('cuda', scale), graphs, buckets=False,
+                         kron_ranks='off')
+        fa = GramFactory(kern('auto', scale), graphs, buckets=False)
+        grp = fk._plan.groups[0]
+        n_pad, plan = grp['n1'], fk._plan.kron
+        check(fs._plan.route(fs._plan.groups[0]) == 'stream'
+              and fk._plan.route(grp) == 'kron',
+              f'{label}: {len(graphs)} graphs padded to n = {n_pad}, m = '
+              f"{grp['m_pad']}; kron ranks {plan.ranks}, factorization error "
+              f'{plan.err:.3e}; the routes stream and kron')
+        K_kron, launches = counted(lambda: fk.gram(fk.theta0))
+        check(launches['kron'] >= 1 and all(
+            v == 0 for k, v in launches.items() if k != 'kron'),
+            f'kron route: {launches}')
+        K_stream, launches = counted(lambda: fs.gram(fs.theta0))
+        check(launches['pcg_stream'] >= 1 and all(
+            v == 0 for k, v in launches.items() if k != 'pcg_stream'),
+            f'stream route: {launches}')
+        K_kron = check_gram(K_kron, f'{label} kron')
+        K_stream = check_gram(K_stream, f'{label} pcg_stream')
+        err = float(np.abs(K_kron - K_stream).max())
+        if plan.err <= _kron.ACCURACY_LIMIT:
+            check(err <= KRON_LIMIT,
+                  f'max |K_kron - K_stream| = {err:.3e} <= {KRON_LIMIT}')
+        else:
+            say(f'  max |K_kron - K_stream| = {err:.3e}: calibration '
+                'rejects this factorization for mode cuda')
+        named = fa._plan.route(fa._plan.groups[0])
+        K_auto, launches = counted(lambda: fa.gram(fa.theta0))
+        ran = [k for k, v in launches.items() if v]
+        auto_err = float(np.abs(K_auto.cpu().numpy() - K_stream).max())
+        check(ran == [{'kron': 'kron', 'stream': 'pcg_stream'}[named]]
+              and auto_err <= KRON_LIMIT,
+              f"backend 'auto': the rule names {named} (n1 n2 = "
+              f'{n_pad * n_pad}), {ran} launched, max |K - K_stream| = '
+              f'{auto_err:.3e} <= {KRON_LIMIT}')
+        say('  value Gram walls, in turns:')
+        w, w_all = walls({'kron': lambda: fk.gram(fk.theta0),
+                          'pcg_stream': lambda: fs.gram(fs.theta0)},
+                         KRON_REPEATS)
+        ladder.append({'class': label, 'graphs': len(graphs),
+                       'n_pad': n_pad, 'm_pad': grp['m_pad'],
+                       'n1n2': n_pad * n_pad, 'ranks': list(plan.ranks),
+                       'factorization_error': plan.err,
+                       'kron_wall_ms': w['kron'],
+                       'stream_wall_ms': w['pcg_stream'],
+                       'kron_walls_ms': w_all['kron'],
+                       'stream_walls_ms': w_all['pcg_stream'],
+                       'max_abs_err': err, 'auto_route': named})
+        del fk, fs, fa
+        torch.cuda.empty_cache()
+
+    say('  -- the JAX kron fixture')
+    ref = np.load(KRON_FIXTURE)
+    seed, n, lo, hi = (int(v) for v in ref['proteins'])
+    fx = GramFactory(kern('kron'), random_protein_set(seed, n, (lo, hi)),
+                     buckets=False)
+    check(np.allclose(fx.theta0, ref['theta'], rtol=1e-6)
+          and tuple(fx._kron_ranks) == tuple(int(r) for r in ref['ranks']),
+          f'fixture theta0 and ranks {fx._kron_ranks} as JAX\'s')
+    K, dK = fx.gram(fx.theta0, eval_gradient=True)
+    err = float(np.abs(K.cpu().numpy() - ref['K']).max())
+    gerr = float(np.abs(dK.cpu().numpy() - ref['dK']).max())
+    check(err <= 1e-4 and gerr <= 5e-3,
+          f'max |K - K_jax| = {err:.3e} <= 1e-4, max |dK - dK_jax| = '
+          f'{gerr:.3e} <= 5e-3 over {n} proteins')
+
+    def faster(r):
+        """The route whose every timed build beat every build of the
+        other; None where they overlap (a tie, which the host's spread of
+        the small sets' walls makes common near the crossover)."""
+        k, s = r['kron_walls_ms'], r['stream_walls_ms']
+        if max(k) < min(s):
+            return 'kron'
+        return 'stream' if max(s) < min(k) else None
+
+    # KRON_MIN_N sits below every set where kron was faster and at or
+    # above every set where pcg_stream was; a tie agrees with either side
+    sets = ladder + rows
+    wins = [r['n1n2'] for r in sets if faster(r) == 'kron']
+    losses = [r['n1n2'] for r in sets if faster(r) == 'stream']
+    chosen = _solver.KRON_MIN_N
+    line = {'kron_min_n': {
+        'chosen': chosen,
+        'kron_faster_from_n1n2': min(wins) if wins else None,
+        'stream_faster_up_to_n1n2': max(losses) if losses else None,
+        'ties_n1n2': [r['n1n2'] for r in sets if faster(r) is None],
+        'agrees_with_this_run': all(n > chosen for n in wins)
+        and all(n <= chosen for n in losses),
+        'walls_ms': [{'set': r['class'], 'n1n2': r['n1n2'],
+                      'm_pad': r['m_pad'], 'kron': r['kron_wall_ms'],
+                      'pcg_stream': r['stream_wall_ms'],
+                      'faster': faster(r)} for r in sets]}}
+    return rows, stream_launches, line
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -559,6 +1024,7 @@ def main():
     from graphdot_tpu_torch.convert import hyperparameters_from_numpy
     from graphdot_tpu_torch.kernel import (
         MarginalizedGraphKernel, Normalization)
+    from graphdot_tpu_torch.kernel.marginalized._kernel import JobPlan
     from graphdot_tpu_torch.kernel.marginalized._solver import (
         mlgk_setup, mlgk_tangents)
     from graphdot_tpu_torch.microkernel import (
@@ -698,6 +1164,20 @@ def main():
     check(proto_err <= 1e-5 * scale,
           f'{TPU_PROTO_KERNEL} covered: max |x_kernel - x_twin| = '
           f'{proto_err:.3e} <= 1e-5 * max |x| = {1e-5 * scale:.3e}')
+    proto_bound = pcg_bound(proto, x_k, it_k)
+    proto_times = time_call(lambda: pcg_resident(*proto), 20,
+                            'pcg_resident_kernel')
+    proto_row = {'name': TPU_PROTO_KERNEL, 'pairs': PROTO_PAIRS,
+                 'steps': PROTO_STEPS, 'ms': proto_times['ms'],
+                 'device_ms': proto_times['device_ms'],
+                 'plain_ms': cuda_ms(lambda: pcg_resident_reference(*proto),
+                                     reps=2),
+                 'bound_ms': proto_bound[0], 'bound_by': proto_bound[1],
+                 'max_abs_err': proto_err}
+    say(f'  at the prototype\'s shape: pcg_resident {proto_row["ms"]:.4f} ms '
+        f'by events, device {proto_row["device_ms"]} ms, plain twin '
+        f'{proto_row["plain_ms"]:.4f} ms, bound {proto_bound[0]:.4f} ms '
+        f'({proto_bound[1]})')
 
     say('== 4. the molecule slice: normalized 128-molecule Gram, '
         'backend=cuda, through the cached factory')
@@ -877,6 +1357,16 @@ def main():
     p_edge_err = float(np.abs(KP - KP_edge).max())
     check(p_edge_err <= 1e-5, f'max |K_cuda - K_edge| = {p_edge_err:.3e} '
           f'<= 1e-5 (edge build {edge_s:.3f} s)')
+    niche = JobPlan(pkernel, proteins, *np.triu_indices(len(proteins)),
+                    False)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        niche_kron = niche.calibrate_kron(pkernel._theta_vector())
+    check(niche_kron.ranks == 'off'
+          and niche.route(niche.groups[0]) == 'stream',
+          f'the route stays pcg_stream: calibration rejects the ctype '
+          f'factor (factorization error {niche_kron.err:.3g}; n1 n2 = '
+          f'{pn_pad * pn_pad})')
 
     say('== 8. the boundary')
     pref = np.load(PROTEIN_FIXTURE)
@@ -941,6 +1431,9 @@ def main():
             f'{stream_times[what, "plain"]:.4f} ms; bound {bound[0]:.4f} ms '
             f'({bound[1]}), T streamed once a step {bound[2]:.4f} ms')
     lone_ctas = used
+    lone_device_ms = device_ms(lambda: pcg_stream(*lone), 10, 'stream')
+    say(f'  lone pair at C = {lone_ctas}: device time of the call\'s kernels '
+        f'{lone_device_ms} ms')
     stream_ms = float(np.mean(stream_times['chunk', None]))
     stream_device_ms = device_ms(lambda: pcg_stream(*p_args), 3, 'stream')
     say(f'  chunk at C = {pcg_stream.last_ctas_per_pair}: device time of '
@@ -1306,6 +1799,10 @@ def main():
     say('== 15. the GP fit: GaussianProcessRegressor on the 128 molecules')
     gp_launches = gp_phase(graphs, held, make_kernel)
 
+    say('== 16. the protein classes of bench_protein.py: kron against '
+        'pcg_stream')
+    kron_rows, kron_stream_launches, kron_min_n = kron_phase()
+
     def by_path(name):
         """A kernel's launches on each path, counted from 0 before it."""
         return {'value Gram (4)': launches if name == 'pcg_resident' else 0,
@@ -1315,7 +1812,9 @@ def main():
                     'pcg_resident': grad_resident_launches,
                     'pcg_packed': packed_launches, 'pcg_stream': 0}[name],
                 'factory gradient (14)': factory_launches[name],
-                'GP fit (15)': gp_launches[name]}
+                'GP fit (15)': gp_launches[name],
+                'bench_protein classes, stream route (16)':
+                kron_stream_launches if name == 'pcg_stream' else 0}
 
     def headline(row, rows):
         """A kernel's numbers on the summary line: those of its timed
@@ -1327,10 +1826,12 @@ def main():
                           if k not in ('occupancy', 'live')} for r in rows]
         return out
 
+    say(json.dumps(kron_min_n))
+    say(json.dumps({'kron_route': kron_rows}))
     say(json.dumps({'kernels': [{
         'name': 'pcg_resident', 'route': 'cuda',
         'source': 'graphdot_tpu_torch/csrc/pcg_resident.cu',
-        'replaces': TPU_KERNEL, 'covers': TPU_PROTO_KERNEL,
+        'replaces': TPU_KERNEL, 'covers': proto_row,
         'launches': launches, 'max_abs_err': max_abs_err,
         **headline(resident_main, resident_rows), 'library_ms': None,
         'split': resident_split,
@@ -1349,6 +1850,7 @@ def main():
             'ctas_per_pair': lone_ctas,
             'ms': float(np.mean(stream_times['lone', None])),
             'ms_ctas_1': float(np.mean(stream_times['lone', 1])),
+            'device_ms': lone_device_ms,
             'plain_ms': stream_times['lone', 'plain'],
             'bound_ms': stream_times['lone', 'bound'][0],
             'stream_floor_ms': stream_times['lone', 'bound'][2]},

@@ -6,7 +6,8 @@ hyperparameters; counterpart of ``graphdot_tpu/inference/gram.py``.
 tensors and job indices stay on the kernel's device. :meth:`GramFactory.gram`
 then redoes only what depends on the hyperparameters: the product-graph
 setup and the solves (``pcg_resident`` for the values and ``pcg_packed``
-for the tangents on the card). It serves ``MarginalizedGraphKernel.__call__``
+for the tangents on the card, ``pcg_stream`` or the sum-of-Kronecker route
+for pairs beyond a block). It serves ``MarginalizedGraphKernel.__call__``
 (non-nodal calls of 512 jobs or more) and the Gaussian-process fit.
 
 Where the port differs from the JAX module:
@@ -22,6 +23,11 @@ Where the port differs from the JAX module:
   the per-call path.
 - ``maxiter`` bounds each group's solves by ``min(n1 * n2, maxiter)``, the
   padded product of its two classes, as in the JAX module.
+- ``kron_ranks='auto'`` calibrates on the Chebyshev domain of all the
+  factory's real edges, the domain its solves use; under mode ``'cuda'``
+  calibration happens only where a group would take the kron route
+  (``JobPlan.kron_possible``: beyond a block, by ``resident_fits``, and
+  beyond ``KRON_MIN_N``).
 
 Not ported:
 
@@ -29,8 +35,6 @@ Not ported:
   measured slower on the H100 than one pair a block (``PERF.md``);
 - the one-hot gates ``_ONEHOT_BUDGET`` and ``_ONEHOT_JOB_ELEMS``: the card's
   kernels gather over the edge lists and build no incidence one-hots;
-- ``kron_ranks`` and ``recalibrate_kron``: the sum-of-Kronecker solver is
-  not ported;
 - ``reorder_by_iterations``: each pair stops at its own convergence in its
   own block;
 - ``_group_ops_solve``, the sharded path.
@@ -68,10 +72,22 @@ class GramFactory:
         product of ``graphs`` and ``graphs2``, and ``gram`` returns
         [len(graphs), len(graphs2)]. Normalize such a Gram with each side's
         diagonal: ``normalize`` must be False.
+    kron_ranks: 'auto' | None | int | tuple | 'off'
+        Chebyshev ranks of the sum-of-Kronecker route
+        (``kernel/marginalized/_kron.py``). 'auto' calibrates the
+        per-feature rank against ``factorization_error`` at the kernel's
+        hyperparameters whenever a group would take the route; under
+        backend 'cuda' an error above 1e-4 sets 'off' (those pairs run in
+        ``pcg_stream``), backend 'kron' keeps the best rung and warns. None
+        is the module default, an int or a tuple forces the ranks, 'off'
+        keeps backend 'cuda' off the route (and raises under backend
+        'kron', which has no other route). Call :meth:`recalibrate_kron`
+        after large hyperparameter moves; at the theta of the last
+        calibration it keeps the ranks it has.
     """
 
     def __init__(self, kernel, graphs, normalize=True, buckets='auto',
-                 node_align=8, maxiter=None, graphs2=None):
+                 node_align=8, maxiter=None, graphs2=None, kron_ranks='auto'):
         if maxiter is None:
             self._maxiter_cap = 10000
         elif int(maxiter) >= 1:
@@ -112,6 +128,38 @@ class GramFactory:
             # each job's place in K
             grp['rows'] = torch.as_tensor(iu[grp['pos']], device=kernel.device)
             grp['cols'] = torch.as_tensor(ju[grp['pos']], device=kernel.device)
+        if self._kron_possible():
+            self._calibrate_kron(None, kron_ranks)
+
+    def _kron_possible(self):
+        """Whether a group of this factory would take the sum-of-Kronecker
+        route once calibrated (``JobPlan.kron_possible``: backend 'kron',
+        or 'cuda' with a group whose pairs do not fit a block by
+        ``resident_fits`` and exceed ``KRON_MIN_N``), with kron-eligible
+        edge features."""
+        return self._plan.kron_possible()
+
+    def _calibrate_kron(self, theta_log_active=None, ranks='auto'):
+        """Set the plan's kron ranks at ``theta_log_active`` (default: the
+        kernel's hyperparameters at construction), on the host."""
+        full = self._full0 if theta_log_active is None else \
+            self.full_theta(theta_log_active).cpu().numpy()
+        return self._plan.calibrate_kron(torch.as_tensor(full), ranks)
+
+    @property
+    def _kron_ranks(self):
+        """The kron route's ranks (a tuple a feature, or 'off'), None when
+        no group takes the route."""
+        return None if self._plan.kron is None else self._plan.kron.ranks
+
+    def recalibrate_kron(self, theta_log_active):
+        """Calibrate the kron ranks again at ``theta_log_active`` (log-scale
+        active hyperparameters) and keep them for later builds. Returns the
+        ranks: None when no group takes the route, 'off' when the
+        factorization misses the accuracy limit under backend 'cuda'."""
+        if not self._kron_possible():
+            return None
+        return self._calibrate_kron(theta_log_active).ranks
 
     @property
     def n_active(self):
@@ -196,7 +244,8 @@ class GramFactory:
         (``lmin`` changes no solve and is kept for the JAX signature):
         the value solves run in the plain :func:`~graphdot_tpu_torch.ops.
         pcg.pcg` with a count a pair, as the JAX module counts them in its
-        XLA solver.
+        XLA solver, over T, or over the kron factors for a group on the
+        kron route.
 
         Returns a list of dicts, one a group, with ``n_jobs``, ``ca`` and
         ``cb`` (the padded node counts of its two classes), ``m1`` and
@@ -210,14 +259,15 @@ class GramFactory:
         stats = []
         for grp in self._plan.groups:
             iters = []
+            grp_mode = 'kron' if self._plan.route(grp) == 'kron' else mode
             for _, idx1, idx2 in self._plan.chunks(grp):
                 ops = kernel._operands(grp['bd1'], grp['bd2'], idx1, idx2)
                 s = _detached(mlgk_setup(
                     theta, ops, knode=kernel.node_kernel,
                     kedge=kernel.edge_kernel, n_p_theta=self._n_p,
-                    mode=mode))
+                    mode=grp_mode, kron=self._plan.kron))
                 iters.append(_plain_solve(
-                    s, mode, s['b'].unsqueeze(1), s['tol'],
+                    s, grp_mode, s['b'].unsqueeze(1), s['tol'],
                     self._group_maxiter(grp), return_iters=True)[1])
             m1 = m2 = 0
             if mode != 'dense':

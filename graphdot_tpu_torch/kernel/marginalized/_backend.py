@@ -1,13 +1,20 @@
 """Backend selection; counterpart of
 ``graphdot_tpu/kernel/marginalized/_backend.py``.
 
-Three ways to solve the product-graph systems:
+Four ways to solve the product-graph systems:
 
 - ``'cuda'`` (what ``'auto'`` picks on a CUDA device): the edge-factored
   operands go to the hand-written PCG kernels: ``ops/pcg.py::pcg_resident``
   (one CTA per pair, all CG state in shared memory), ``pcg_stream`` for
   pairs beyond a block's shared memory, and ``pcg_packed`` for the
-  gradient's tangent systems (one CTA per pair's group of them).
+  gradient's tangent systems (one CTA per pair's group of them). Pairs
+  beyond a block whose product space exceeds ``_solver.KRON_MIN_N`` and
+  whose edge kernel calibrates take the kron route instead
+  (``_solver.solve_route``).
+- ``'kron'``: every pair by the sum-of-Kronecker solver (``_kron.py``):
+  the edge kernel of one or two scalar edge features factorized on a
+  Chebyshev grid, two batched products a matvec in node space, no
+  edge-coupling matrix; on the card and on the CPU alike.
 - ``'edge'`` (what ``'auto'`` picks on the CPU): the same edge-factored
   matvec in plain torch (gathers and index-adds over the edge lists) inside
   a batched PCG.
@@ -23,7 +30,7 @@ class Backend:
     """Computing engine that solves the marginalized graph kernel's
     generalized Laplacian equation."""
 
-    MODES = ('cuda', 'edge', 'dense')
+    MODES = ('cuda', 'edge', 'dense', 'kron')
 
     def __init__(self, mode='edge'):
         if mode not in self.MODES:

@@ -10,7 +10,10 @@ the kernel. With ``eval_gradient=True`` each chunk also solves the tangent
 systems of every hyperparameter (forward mode, as the JAX package's
 ``jax.jacfwd``), and the results carry d K / d theta on the linear scale.
 Non-nodal calls of 512 jobs or more run through a cached
-``GramFactory``, which keeps its plan across calls.
+``GramFactory``, which keeps its plan across calls. Where a chunk may take
+the sum-of-Kronecker route (``backend='kron'``, or ``'cuda'`` beyond a block
+with kron-eligible edge features), every call calibrates the Chebyshev
+ranks at its own hyperparameters first (:meth:`JobPlan.calibrate_kron`).
 """
 import copy
 import numbers
@@ -26,14 +29,18 @@ from ...util.iterable import fold_like, flatten
 from ...util.pretty_tuple import pretty_tuple
 from ...graph import Graph, batch_graphs
 from ._backend import backend_factory, resolve_device
-from ._solver import cuda_solver, mlgk_solve, weight_by_p
-from ...ops.pcg import pcg_stream
+from ._kron import (ACCURACY_LIMIT, DEFAULT_RANK, KronPlan, _normalize_ranks,
+                    calibrate_ranks, kron_domain, kron_eligible_feats)
+from ._solver import (_apply_on_features, _split_theta, chunk_route,
+                      mlgk_solve, weight_by_p)
 from .starting_probability import StartingProbability, Uniform, Adhoc
 
 
 #: working-set budget, in floats, of a chunk of pairs that runs in
 #: ``pcg_stream``
 STREAM_CHUNK_FLOATS = 1 << 30
+#: working-set budget, in floats, of a chunk of pairs on the kron route
+KRON_CHUNK_FLOATS = 1 << 30
 
 
 def _tree_map(f, tree):
@@ -64,7 +71,9 @@ class JobPlan:
     The per-call path (:meth:`MarginalizedGraphKernel._solve_jobs`) builds
     one a call and throws it away; ``graphdot_tpu_torch.inference.
     GramFactory`` keeps one across hyperparameters. Both run its groups
-    through :meth:`solve`.
+    through :meth:`solve`, each group by its :meth:`route`, with ``kron``
+    (a :class:`~._kron.KronPlan` from :meth:`calibrate_kron`, or None) for
+    the kron route.
     """
 
     def __init__(self, kernel, graphs, i_jobs, j_jobs, buckets,
@@ -82,12 +91,20 @@ class JobPlan:
         class_of = np.zeros(len(graphs), dtype=np.int64)
         local_of = np.zeros(len(graphs), dtype=np.int64)
         batches = []
+        self.kron = None
+        self._kron_theta = None     # the theta of the last 'auto' ranks
         for c, idx in enumerate(members):
             class_of[idx] = c
             local_of[idx] = np.arange(len(idx))
             batches.append(kernel._prepare_batch(
                 [graphs[g] for g in idx], node_align))
         self.n_classes = len(batches)
+        # the numpy edge lists of each class, for the kron domain and rank
+        # calibration
+        self._edges = [(b.edge_elist_feats, b.ew) for b, _, _ in batches] \
+            if kernel.backend.mode in ('cuda', 'kron') else None
+        self.kron_eligible = self._edges is not None and \
+            kron_eligible_feats(self._edges[0][0], self._edges[0][0])
 
         ca, cb = class_of[self.i_jobs], class_of[self.j_jobs]
         swap = ca > cb
@@ -109,23 +126,102 @@ class JobPlan:
                 'l2': torch.as_tensor(local_of[second[pos]], device=device),
             })
 
+    def route(self, grp, ranks=None):
+        """The route of the group's chunks (:func:`._solver.chunk_route`):
+        ``'kron'``, ``'resident'``, ``'stream'``, or the plain mode. It is
+        named here only: :meth:`solve` hands it to every chunk's solve, and
+        :meth:`chunks` sizes the chunks for it. ``ranks`` (default: those
+        of :attr:`kron`) are the calibrated ranks the rule reads."""
+        mode = self.kernel.backend.mode
+        if mode not in ('cuda', 'kron'):
+            return mode
+        if ranks is None and self.kron is not None:
+            ranks = self.kron.ranks
+        return chunk_route(mode, grp['bd1']['esrc'].shape[1],
+                           grp['bd2']['esrc'].shape[1], grp['n1'], grp['n2'],
+                           self.kernel.device, self.kron_eligible, ranks)
+
+    def kron_possible(self):
+        """Whether a group would take the kron route once calibrated: its
+        :meth:`route` under the default grid of the edge features (mode
+        ``'kron'``, or ``'cuda'`` with a group beyond a block and beyond
+        ``KRON_MIN_N``), with kron-eligible edge features."""
+        if not self.kron_eligible:
+            return False
+        grid = _normalize_ranks(None, sorted(self._edges[0][0]))
+        return any(self.route(grp, grid) == 'kron' for grp in self.groups)
+
+    def calibrate_kron(self, theta, ranks='auto'):
+        """Set :attr:`kron` for the hyperparameters ``theta`` (the full
+        linear-scale vector): the Chebyshev domain of every edge feature
+        over the real edges of all the plan's graphs, and the ranks:
+        ``'auto'`` calibrates them on the host (:func:`._kron.
+        calibrate_ranks`, on that domain), and in mode ``'cuda'`` an error
+        above ``ACCURACY_LIMIT`` sets ``'off'`` (the pairs stay in
+        ``pcg_stream``) where mode ``'kron'`` keeps the best rung and
+        warns; None is the default grid, an int or a tuple forces them,
+        ``'off'`` keeps mode ``'cuda'`` off the route, and raises in mode
+        ``'kron'``, which has no other route. ``'auto'`` at the theta of
+        the last calibration keeps its plan. Returns the plan."""
+        mode = self.kernel.backend.mode
+        if isinstance(ranks, str) and ranks == 'off' and mode == 'kron':
+            raise ValueError(
+                "kron_ranks='off' under backend 'kron': the kron route is "
+                "the only route of that backend")
+        theta = torch.as_tensor(theta).detach().to('cpu', torch.float32)
+        auto = isinstance(ranks, str) and ranks == 'auto'
+        if auto and self.kron is not None and self._kron_theta is not None \
+                and torch.equal(theta, self._kron_theta):
+            return self.kron
+        names = sorted(self._edges[0][0])
+        feats = {n: torch.from_numpy(np.concatenate(
+            [f[n][ew != 0] for f, ew in self._edges]))[None]
+            for n in names}
+        ones = torch.ones_like(feats[names[0]])
+        domain = kron_domain(feats, ones, feats, ones)
+        err = None
+        if ranks == 'auto':
+            kernel = self.kernel
+            te = _split_theta(theta, kernel.node_kernel, kernel.edge_kernel,
+                              len(list(flatten(kernel.p.theta))))[2]
+            ranks, err = calibrate_ranks(
+                _apply_on_features, kernel.edge_kernel, te, feats, ones,
+                feats, ones, domain=domain)
+            if mode == 'cuda' and err > ACCURACY_LIMIT:
+                ranks = 'off'
+        elif not (isinstance(ranks, str) and ranks == 'off'):
+            ranks = _normalize_ranks(ranks, names)
+        self.kron = KronPlan(ranks, domain, err)
+        self._kron_theta = theta if auto else None
+        return self.kron
+
     def chunks(self, grp, eval_gradient=False, nodal=False):
         """The group's jobs as (start, local indices 1, local indices 2) in
-        chunks of :meth:`MarginalizedGraphKernel._chunk_size` pairs."""
+        chunks of :meth:`MarginalizedGraphKernel._chunk_size` pairs, sized
+        for the group's :meth:`route`."""
+        route = self.route(grp)
+        grid = None
+        if route == 'kron':
+            ranks = None if self.kron is None else self.kron.ranks
+            grid = int(np.prod(_normalize_ranks(
+                ranks, sorted(grp['bd1']['edge_elist_feats']))))
         chunk = self.kernel._chunk_size(max(grp['n1'], grp['n2']),
-                                        grp['m_pad'], eval_gradient, nodal)
+                                        grp['m_pad'], eval_gradient, nodal,
+                                        route=route, grid=grid)
         for s in range(0, len(grp['pos']), chunk):
             yield s, grp['l1'][s:s + chunk], grp['l2'][s:s + chunk]
 
     def solve(self, theta, grp, nodal, lmin, eval_gradient=False,
               maxiter=None, with_residual=False):
         """Solve a group's jobs chunk by chunk; yields
-        :meth:`MarginalizedGraphKernel._solve_chunk`'s result for each."""
+        :meth:`MarginalizedGraphKernel._solve_chunk`'s result for each, in
+        the group's :meth:`route`."""
+        route = self.route(grp)
         for _, idx1, idx2 in self.chunks(grp, eval_gradient, nodal):
             yield self.kernel._solve_chunk(
                 theta, grp['bd1'], grp['bd2'], idx1, idx2, grp['pf1'],
                 grp['pf2'], nodal, lmin, eval_gradient, maxiter=maxiter,
-                with_residual=with_residual)
+                with_residual=with_residual, kron=self.kron, route=route)
 
 
 class MarginalizedGraphKernel:
@@ -151,8 +247,8 @@ class MarginalizedGraphKernel:
         convergence tolerance of the kernel-value solve (stop at
         sqrt(rTr) < ftol * N); gtol that of the gradient's tangent solves.
     dtype: numpy dtype of returned matrices.
-    backend: 'auto', 'cuda', 'edge', 'dense', or a Backend instance.
-        'auto' is 'cuda' on a CUDA device and 'edge' on the CPU.
+    backend: 'auto', 'cuda', 'edge', 'dense', 'kron', or a Backend
+        instance. 'auto' is 'cuda' on a CUDA device and 'edge' on the CPU.
     buckets: solve jobs in per-size-class batches instead of padding every
         graph to the largest. Calls on the factory route (below) bucket by
         size class whenever the graphs span more than one class, whatever
@@ -310,13 +406,15 @@ class MarginalizedGraphKernel:
 
     def _solve_chunk(self, theta, bd1, bd2, idx1, idx2, pf1, pf2, nodal,
                      lmin, eval_gradient=False, maxiter=None,
-                     with_residual=False):
+                     with_residual=False, kron=None, route=None):
         """Solve one chunk of jobs; returns (R [P, n1, n2] (nodal) or the
         kernel values [P], and with ``eval_gradient`` d R / d theta
         [P(, n1, n2), n_dims], else None), as float32 tensors; with
         ``with_residual``, also the [P] relative residuals of the value
         solves. ``maxiter`` defaults to :meth:`maxiter` of the padded
-        size."""
+        size; ``kron`` is the plan's :class:`~._kron.KronPlan` and ``route``
+        the chunk's (:meth:`JobPlan.route`; None: mode ``'cuda'``'s from
+        the shapes, as :func:`._solver.mlgk_solve` says)."""
         ops = self._operands(bd1, bd2, idx1, idx2)
         if maxiter is None:
             maxiter = self.maxiter(max(bd1['node_mask'].shape[1],
@@ -326,7 +424,7 @@ class MarginalizedGraphKernel:
             theta, ops, knode=self.node_kernel, kedge=self.edge_kernel,
             n_p_theta=n_p, lmin=lmin, mode=self.backend.mode,
             maxiter=maxiter, tangents=eval_gradient,
-            return_resnorm=with_residual
+            return_resnorm=with_residual, kron=kron, route=route
         )
         pf1 = None if pf1 is None else pf1[idx1]
         pf2 = None if pf2 is None else pf2[idx2]
@@ -360,28 +458,46 @@ class MarginalizedGraphKernel:
         product-space dimension, capped at 10000."""
         return min(n_pad * n_pad, 10000)
 
-    def _chunk_size(self, n_pad, m_pad, eval_gradient=False, nodal=False):
+    def _chunk_size(self, n_pad, m_pad, eval_gradient=False, nodal=False,
+                    route=None, grid=None):
         """Job-chunk size bounded by the solver's working-set memory
         (~256 MB of float32 per chunk; ~4 GB for pairs that run in
         ``pcg_stream``, whose launch overhead and three grid barriers per
-        CG step are paid once a chunk). Gradients carry one tangent system per
-        hyperparameter, and nodal gradients [chunk, n, n, n_dims] outputs,
-        which scale the per-pair working set as in the JAX package."""
+        CG step are paid once a chunk, and on the kron route). Gradients
+        carry one tangent system per hyperparameter, and nodal gradients
+        [chunk, n, n, n_dims] outputs, which scale the per-pair working set
+        as in the JAX package. ``route`` defaults to the one of mode
+        ``'cuda'`` without kron (:func:`._solver.chunk_route`) for the
+        padded sizes; on the kron route, ``grid`` is the tensor grid's
+        size R."""
+        n_theta = max(int(self.n_dims), 1)
+        nn = n_pad * n_pad
+        mode = self.backend.mode
+        if route is None:
+            route = mode if mode in ('dense', 'edge') else chunk_route(
+                mode, m_pad, m_pad, n_pad, n_pad, self.device)
+        if route == 'kron':
+            grid = grid or DEFAULT_RANK
+            # the side factors A1s, B2s, side 2's grid values, the fused
+            # intermediate, and the dense basis evaluation's temporaries;
+            # the k tangents' intermediates side by side, their CG vectors
+            per_pair = 8 * grid * nn + 8 * nn
+            if eval_gradient:
+                per_pair += 8 * n_theta * (grid * nn + nn)
+                if nodal:
+                    per_pair += nn * n_theta
+            return int(np.clip(KRON_CHUNK_FLOATS // per_pair, 1, 4096))
         budget = 1 << 26  # floats
-        if self.backend.mode == 'dense':
+        if mode == 'dense':
             per_pair = max(n_pad ** 4, 1)
         else:
-            per_pair = max(
-                m_pad * m_pad + 4 * m_pad * n_pad + 8 * n_pad * n_pad, 1
-            )
-            if self.backend.mode == 'cuda' and cuda_solver(
-                    m_pad, m_pad, n_pad, n_pad, self.device) is pcg_stream:
+            per_pair = max(m_pad * m_pad + 4 * m_pad * n_pad + 8 * nn, 1)
+            if route == 'stream':
                 budget = STREAM_CHUNK_FLOATS
         if eval_gradient:
-            n_theta = max(int(self.n_dims), 1)
             per_pair *= 1 + n_theta
             if nodal:
-                per_pair += n_pad * n_pad * n_theta
+                per_pair += nn * n_theta
         return int(np.clip(budget // per_pair, 1, 4096))
 
     def _size_classes(self, graphs, align=8):
@@ -401,6 +517,8 @@ class MarginalizedGraphKernel:
         size class with ``buckets`` on."""
         theta = self._theta_vector()
         plan = JobPlan(self, graphs, i_jobs, j_jobs, self.buckets)
+        if plan.kron_possible():
+            plan.calibrate_kron(theta)
         P = len(plan.i_jobs)
         raw = [None] * P if nodal else np.empty(P)
         raw_grad = None
@@ -495,7 +613,8 @@ class MarginalizedGraphKernel:
         """A non-nodal call through the cached factory: (K, dK on the
         linear scale or None) as numpy, or None where the route declines
         (``GRAPHDOT_API_UNION``, fewer jobs than the threshold, or mode
-        ``'dense'``)."""
+        ``'dense'``). Where the factory's pairs may take the kron route, its
+        ranks are calibrated at the call's hyperparameters first."""
         v = os.environ.get('GRAPHDOT_API_UNION', 'auto').strip().lower()
         if v in ('0', 'false', 'off', 'no'):
             return None
@@ -505,7 +624,7 @@ class MarginalizedGraphKernel:
             min_jobs = 0
         else:
             min_jobs = int(v)
-        if self.backend.mode not in ('cuda', 'edge'):
+        if self.backend.mode not in ('cuda', 'edge', 'kron'):
             return None
         nX = len(X)
         n_jobs = nX * (nX + 1) // 2 if Y is None else nX * len(Y)
@@ -514,6 +633,7 @@ class MarginalizedGraphKernel:
 
         factory = self._get_call_factory(X, Y)
         th_lin = self.flat_hyperparameters[self.active_theta_mask]
+        factory.recalibrate_kron(np.log(th_lin))
         out = factory.gram(np.log(th_lin), lmin=int(lmin),
                            eval_gradient=eval_gradient)
         if eval_gradient:

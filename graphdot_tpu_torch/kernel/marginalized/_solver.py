@@ -6,11 +6,14 @@ oracle in ``tests/oracle.py``:
 ``[diag(Dx/Vx) - (A1 (x) A2) . Ex] x = Dx`` with ``Dx = kron(D1, D2)/(1-q)^2``
 and the kernel value ``K = sum_ij p1_i p2_j x_ij``.
 
-The off-diagonal matvec is either the dense coupling tensor
-(``mode='dense'``) or the edge-factored form with per-pair edge-coupling
-matrix ``T[e1,e2] = w1 w2 k_edge(e1,e2)`` over the directed edge lists
-(``'edge'`` in plain torch, ``'cuda'`` in the CUDA PCG kernels, routed
-by :func:`cuda_solver`). The batched PCG loop itself lives in
+The off-diagonal matvec is the dense coupling tensor (``mode='dense'``),
+the edge-factored form with per-pair edge-coupling matrix
+``T[e1,e2] = w1 w2 k_edge(e1,e2)`` over the directed edge lists (``'edge'``
+in plain torch, ``'cuda'`` in the CUDA PCG kernels), or the
+sum-of-Kronecker form of :mod:`._kron` (``'kron'``: two batched products
+over Chebyshev factors, no T). :func:`solve_route` names the route of each
+chunk before any launch: ``pcg_resident`` (``pcg_packed`` for tangents),
+``pcg_stream`` or kron. The batched PCG loop itself lives in
 :mod:`graphdot_tpu_torch.ops.pcg`, where the kernels' plain twins share it.
 
 Gradients in the hyperparameters theta are forward mode, as the JAX
@@ -28,6 +31,19 @@ import torch
 
 from ...ops.pcg import (gather_offdiag, largest_packed_k, pcg, pcg_packed,
                         pcg_resident, pcg_stream, resident_fits)
+from ._kron import (fold_side_2, kron_factors,
+                    kron_grid_kernel, kron_offdiag, kron_pcg,
+                    kron_tangent_offdiag)
+
+#: mode ``'cuda'`` sends a pair that does not fit a block to kron only
+#: when its padded product space n1 * n2 exceeds this (and its edge
+#: kernel is kron-eligible and calibrated); the counterpart of the JAX
+#: package's ``GRAPHDOT_KRON_MIN_N`` (0 on the TPU). On an H100, over
+#: three runs of ``chip_smoke.py`` phase 16's ladder, kron's value Gram
+#: lost to ``pcg_stream``'s on proteins at n = 96 twice (and tied once),
+#: tied or won at n = 120, won from n = 160 on, and lost on molecules at
+#: n = 72 (``PERF.md``, section 6): 96^2
+KRON_MIN_N = 9216
 
 # ---------------------------------------------------------------------------
 # feature pytree helpers
@@ -101,22 +117,60 @@ def _apply_on_features(kernel, theta, X, Y):
 # ---------------------------------------------------------------------------
 
 
-def cuda_solver(M1, M2, N1, N2, device):
+def solve_route(mode, fits, eligible, ranks, n1n2, kron_min_n=None):
+    """The route of a chunk of pairs, named before any launch: ``'kron'``,
+    ``'resident'`` (``pcg_resident``, and ``pcg_packed`` for tangents),
+    ``'stream'`` (``pcg_stream``), or the plain mode (``'edge'``,
+    ``'dense'``).
+
+    Mode ``'kron'`` solves every pair by kron. Mode ``'cuda'`` keeps a chunk
+    whose pairs ``fits`` a block in ``pcg_resident``; otherwise it takes
+    kron when the edge features are ``eligible`` (:func:`._kron.
+    kron_eligible`), the ``ranks`` are calibrated (not None, not ``'off'``)
+    and the padded product space ``n1n2`` exceeds ``kron_min_n`` (default
+    :data:`KRON_MIN_N`), and ``pcg_stream`` else. No route stands in for
+    another after a failure."""
+    if mode == 'kron':
+        return 'kron'
+    if mode != 'cuda':
+        return mode
+    if fits:
+        return 'resident'
+    if kron_min_n is None:
+        kron_min_n = KRON_MIN_N
+    if eligible and ranks is not None and ranks != 'off' \
+            and n1n2 > kron_min_n:
+        return 'kron'
+    return 'stream'
+
+
+def chunk_route(mode, M1, M2, N1, N2, device, eligible=False, ranks=None):
+    """:func:`solve_route` for pairs of these shapes on ``device``: they fit
+    a block when :func:`resident_fits` says so on a CUDA device (its shared
+    memory, and the registers of the CG state of its product nodes), and
+    always on the CPU, where the resident route runs its plain twin."""
+    device = torch.device(device)
+    fits = device.type != 'cuda' or (
+        mode == 'cuda' and resident_fits(M1, M2, N1, N2, device))
+    return solve_route(mode, fits, eligible, ranks, N1 * N2)
+
+
+def cuda_solver(M1, M2, N1, N2, device, route=None):
     """The kernel that mode ``'cuda'`` solves a chunk of pairs of these
-    shapes with: :func:`pcg_resident` when one pair fits a block on the
-    CUDA ``device`` (its shared memory, and the registers of the CG state
-    of its product nodes: :func:`resident_fits`), else :func:`pcg_stream`.
+    shapes with, off the kron route: :func:`pcg_resident` on the route
+    ``'resident'``, :func:`pcg_stream` on ``'stream'``. ``route`` is the
+    chunk's, as its plan named it (``JobPlan.route``); None names it from
+    the shapes by :func:`chunk_route` (one pair fits a block on the CUDA
+    ``device``, kron aside).
 
     This is the counterpart of ``graphdot_tpu/ops/pallas_pcg.py:379-388``
     with the TPU's 48 MB VMEM limit replaced by the card's limit per
-    block; the sum-of-Kronecker branch of the JAX package is not ported.
-    On the CPU both wrappers run the same plain function, and
-    :func:`pcg_resident` is returned."""
-    if torch.device(device).type != 'cuda':
-        return pcg_resident
-    if resident_fits(M1, M2, N1, N2, torch.device(device)):
-        return pcg_resident
-    return pcg_stream
+    block; the sum-of-Kronecker branch is :func:`solve_route`'s. On the CPU
+    both wrappers run the same plain function, and :func:`pcg_resident` is
+    returned."""
+    if route is None:
+        route = chunk_route('cuda', M1, M2, N1, N2, device)
+    return pcg_resident if route == 'resident' else pcg_stream
 
 
 def _packed_tangents(group, T, esrc1, edst1, esrc2, edst2, diag, precond,
@@ -164,7 +218,7 @@ def _stream_tangents(T, esrc1, edst1, esrc2, edst2, diag, precond, rhs, tol,
     return x.view(P, k, N1, N2), iters
 
 
-def cuda_tangent_solver(k, M1, M2, N1, N2, device):
+def cuda_tangent_solver(k, M1, M2, N1, N2, device, route=None):
     """The solver that mode ``'cuda'`` runs the k tangent systems of each
     pair of a chunk with, as ``solve(T, esrc1, edst1, esrc2, edst2, diag,
     precond, rhs [P, k, N1, N2], tol [P], maxiter) -> (x [P, k, N1, N2],
@@ -180,8 +234,11 @@ def cuda_tangent_solver(k, M1, M2, N1, N2, device):
       member launch :func:`pcg_resident`'s kernel (pairs of more than
       2048 product nodes, where two members' CG state exceeds a block's
       registers);
-    - :func:`pcg_stream` over P * k systems when a single pair does not
-      fit a block (as :func:`cuda_solver` routes its value solve).
+    - :func:`pcg_stream` over P * k systems on the route ``'stream'``, a
+      single pair beyond a block.
+
+    ``route`` is the chunk's, as :func:`cuda_solver` takes it (None: from
+    the shapes by :func:`chunk_route`).
 
     On the CPU the groups hold all k systems, and :func:`pcg_packed` runs
     its plain twin. The route is chosen by these rules before any launch,
@@ -189,15 +246,25 @@ def cuda_tangent_solver(k, M1, M2, N1, N2, device):
     device = torch.device(device)
     if device.type != 'cuda':
         return functools.partial(_packed_tangents, k)
-    group = largest_packed_k(k, M1, M2, N1, N2, device, shared=True) \
-        if resident_fits(M1, M2, N1, N2, device) else 0
-    if group == 0:
+    if route is None:
+        route = chunk_route('cuda', M1, M2, N1, N2, device)
+    if route == 'stream':
         return _stream_tangents
+    group = largest_packed_k(k, M1, M2, N1, N2, device, shared=True)
     n_groups = -(-k // group)
     return functools.partial(_packed_tangents, -(-k // n_groups))
 
 
-def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode):
+def _split_theta(theta, knode, kedge, n_p_theta):
+    """(q, node hyperparameters, edge hyperparameters) of theta."""
+    q = theta[n_p_theta]
+    tn = theta[n_p_theta + 1:n_p_theta + 1 + knode.n_theta]
+    te = theta[n_p_theta + 1 + knode.n_theta:
+               n_p_theta + 1 + knode.n_theta + kedge.n_theta]
+    return q, tn, te
+
+
+def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode, kron=None):
     """Build the product-graph systems of a batch of graph pairs.
 
     Parameters
@@ -208,7 +275,10 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode):
         all leading dims are the number of pairs P.
     knode, kedge: microkernels.
     n_p_theta: number of starting-probability hyperparameters.
-    mode: 'cuda', 'edge' or 'dense'.
+    mode: 'cuda', 'edge', 'dense' or 'kron' (the coupling built; None
+        builds none).
+    kron: the :class:`._kron.KronPlan` of mode ``'kron'`` (ranks and
+        domain; None: the default ranks and the chunk's own domain).
 
     Returns
     -------
@@ -216,12 +286,11 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode):
     ``tol`` [P] (``ops['ftol'] * n1 * n2``; ``gtol`` [P] too when ops
     has ``'gtol'``), and the coupling: ``T`` [P, M1, M2] with the int32 edge
     lists ``esrc_1``, ``edst_1``, ``esrc_2``, ``edst_2`` (edge-factored
-    modes), or ``W`` [P, n1, n1, n2, n2] ('dense').
+    modes), ``W`` [P, n1, n1, n2, n2] ('dense'), or the Kronecker factors
+    ``A1s``, ``B2s``, ``V2`` and the grid kernel ``C`` [R, R] ('kron', no T:
+    :func:`._kron.kron_factors`).
     """
-    q = theta[n_p_theta]
-    tn = theta[n_p_theta + 1:n_p_theta + 1 + knode.n_theta]
-    te = theta[n_p_theta + 1 + knode.n_theta:
-               n_p_theta + 1 + knode.n_theta + kedge.n_theta]
+    q, tn, te = _split_theta(theta, knode, kedge, n_p_theta)
 
     nf1, nf2 = ops['node_feats_1'], ops['node_feats_2']
     mask1, mask2 = ops['node_mask_1'], ops['node_mask_2']
@@ -259,6 +328,8 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode):
     if 'gtol' in ops:
         system['gtol'] = ops['gtol'] * n_true
 
+    if mode is None:
+        return system
     if mode == 'dense':
         adj1, adj2 = ops['adj_1'], ops['adj_2']
         raw_ef1, raw_ef2 = ops['edge_feats_1'], ops['edge_feats_2']
@@ -271,6 +342,9 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode):
         # W[c, i1, j1, i2, j2]
         W = ke * adj1[:, :, :, None, None] * adj2[:, None, None, :, :]
         system['W'] = W.expand(P, n1, n1, n2, n2)
+        return system
+    if mode == 'kron':
+        system.update(kron_factors(ops, _apply_on_features, kedge, te, kron))
         return system
 
     ew1, ew2 = ops['ew_1'], ops['ew_2']
@@ -305,6 +379,11 @@ def _plain_offdiag(system, mode, k):
             return torch.einsum('cijkl,cdjl->cdik', W,
                                 Y.view(P, k, n1, n2)).reshape(P * k, n1, n2)
         return offdiag
+    if mode == 'kron':
+        def offdiag(Y):
+            return kron_offdiag(system['A1s'], system['B2s'],
+                                Y.view(P, k, n1, n2)).reshape(P * k, n1, n2)
+        return offdiag
     T = _repeat(system['T'], k)
     edges = [_repeat(system[f], k).long()
              for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2')]
@@ -313,7 +392,7 @@ def _plain_offdiag(system, mode, k):
 
 def _plain_matvec(system, mode, k=1):
     """``y -> A y`` over y [P * k, n1 * n2], k systems a pair, each with its
-    pair's operator, by the plain modes' off-diagonal matvec."""
+    pair's operator, by the plain modes' off-diagonal matvec (and kron's)."""
     P, n1, n2 = system['diag'].shape
     N = n1 * n2
     offdiag = _plain_offdiag(system, mode, k)
@@ -328,10 +407,16 @@ def _plain_matvec(system, mode, k=1):
 def _plain_solve(system, mode, b, tol, maxiter, return_iters=False):
     """Solve ``A x = b`` for b [P, k, n1, n2] (k right-hand sides a pair)
     by the plain batched :func:`pcg` of modes ``'edge'`` and ``'dense'``,
-    every one of the P * k systems to its pair's tol. With
-    ``return_iters``, also the [P * k] step counts."""
+    or by :func:`._kron.kron_pcg` for ``'kron'`` (the k right-hand sides of
+    a pair side by side through its factors), every one of the P * k
+    systems to its pair's tol. With ``return_iters``, also the [P * k] step
+    counts."""
     P, k, n1, n2 = b.shape
     N = n1 * n2
+    if mode == 'kron':
+        return kron_pcg(system['A1s'], system['B2s'], system['diag'],
+                        system['precond'], b, tol, maxiter,
+                        return_iters=return_iters)
     out = pcg(_plain_matvec(system, mode, k), b.reshape(P * k, N),
               _repeat(system['precond'].reshape(P, N), k), _repeat(tol, k),
               maxiter, return_iters=return_iters)
@@ -345,16 +430,18 @@ def _detached(system):
     return {f: v.detach() for f, v in system.items()}
 
 
-def _value_solver(system, mode, maxiter):
+def _value_solver(system, mode, maxiter, route=None):
     """``solve(b [P, n1, n2]) -> x`` with the system's operator at its
-    value tol, in the mode's route (:func:`cuda_solver` for ``'cuda'``)."""
+    value tol, in the mode's route (:func:`cuda_solver` of ``route`` for
+    ``'cuda'``)."""
     s = _detached(system)
     diag, precond, tol = (s[f].contiguous()
                           for f in ('diag', 'precond', 'tol'))
     if mode == 'cuda':
         T = s['T']
         P, n1, n2 = diag.shape
-        solver = cuda_solver(T.shape[1], T.shape[2], n1, n2, T.device)
+        solver = cuda_solver(T.shape[1], T.shape[2], n1, n2, T.device,
+                             route)
 
         def solve(b):
             return solver(T, s['esrc_1'], s['edst_1'], s['esrc_2'],
@@ -392,23 +479,33 @@ class _SolveLinear(torch.autograd.Function):
         return None, None, lam, d_diag, d_coupling
 
 
-def solve_linear(system, mode, maxiter):
+def solve_linear(system, mode, maxiter, route=None):
     """Solve a chunk's systems ``A x = b`` (:func:`mlgk_setup`'s output) to
     their value tol, differentiably in the system's tensors: the reverse-
     mode counterpart of the JAX package's ``solve_linear``
     (``lax.custom_linear_solve(symmetric=True)``).
 
-    The forward solve runs in the mode's route (:func:`cuda_solver` for
-    ``'cuda'``); the backward pass solves the adjoint system ``A lam =
-    x_bar`` by the same route, then takes ``b_bar = lam`` and the operator's
-    cotangents from autograd through the plain matvec at ``-lam^T A x``.
-    Returns x [P, n1, n2]."""
+    The forward solve runs in the mode's route (:func:`cuda_solver` of the
+    chunk's ``route`` for ``'cuda'``, :func:`._kron.kron_pcg` for
+    ``'kron'``); the backward pass
+    solves the adjoint system ``A lam = x_bar`` by the same route, then
+    takes ``b_bar = lam`` and the operator's cotangents from autograd
+    through the plain matvec at ``-lam^T A x``. The coupling that carries
+    the hyperparameters is T, W, or for ``'kron'`` the grid kernel C, which
+    side 2's factors are folded with again. Returns x [P, n1, n2]."""
     P, n1, n2 = system['diag'].shape
     if mode == 'dense':
         coupling = system['W']
 
         def offdiag(W, Y):
             return torch.einsum('cijkl,cjl->cik', W, Y)
+    elif mode == 'kron':
+        coupling = system['C']
+        A1s, V2 = system['A1s'].detach(), system['V2'].detach()
+
+        def offdiag(C, Y):
+            return kron_offdiag(A1s, fold_side_2(V2, C),
+                                Y.unsqueeze(1))[:, 0]
     else:
         coupling = system['T']
         edges = [system[f].long()
@@ -420,11 +517,13 @@ def solve_linear(system, mode, maxiter):
     def matvec(y, diag, C):
         return diag * y - offdiag(C, y)
 
-    return _SolveLinear.apply(matvec, _value_solver(system, mode, maxiter),
+    return _SolveLinear.apply(matvec,
+                              _value_solver(system, mode, maxiter, route),
                               system['b'], system['diag'], coupling)
 
 
-def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode):
+def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode,
+                  kron=None):
     """The tangent right-hand sides of the product-graph systems, one for
     each of the n_theta directions of theta:
 
@@ -433,11 +532,14 @@ def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode):
     with ``T_d``, ``diag_d`` and ``b_d`` from ``torch.func.jacfwd`` of
     :func:`mlgk_setup`'s elementwise part in theta (``W_d`` in mode
     ``'dense'``), and the plain gather matvec, which is linear in T, on each
-    direction's ``T_d``: the gather itself is not differentiated.
+    direction's ``T_d``: the gather itself is not differentiated. In mode
+    ``'kron'`` the coupling's jacobian is the grid kernel's, ``C_d``
+    [n_theta, R, R], and each direction's term a kron matvec on x with side
+    2 folded with ``C_d`` (:func:`._kron.kron_tangent_offdiag`).
 
     Parameters
     ----------
-    theta, ops, knode, kedge, n_p_theta, mode: as :func:`mlgk_setup`.
+    theta, ops, knode, kedge, n_p_theta, mode, kron: as :func:`mlgk_setup`.
     system: :func:`mlgk_setup`'s output at theta.
     x: [P, n1, n2] the systems' solutions at theta.
 
@@ -446,21 +548,30 @@ def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode):
     dict with ``rhs`` [P, n_theta, n1, n2] and ``Vx`` [P, n_theta, n1, n2],
     the tangents of the node-kernel diagonal (for ``lmin == 1``).
     """
-    coupling = 'W' if mode == 'dense' else 'T'
-
     def elementwise(t):
         s = mlgk_setup(t, ops, knode=knode, kedge=kedge,
-                       n_p_theta=n_p_theta, mode=mode)
-        return s['diag'], s['b'], s[coupling], s['Vx']
+                       n_p_theta=n_p_theta,
+                       mode=None if mode == 'kron' else mode)
+        if mode == 'kron':
+            coupling = kron_grid_kernel(
+                ops, _apply_on_features, kedge,
+                _split_theta(t, knode, kedge, n_p_theta)[2], kron)
+        else:
+            coupling = s['W' if mode == 'dense' else 'T']
+        return s['diag'], s['b'], coupling, s['Vx']
 
-    diag_d, b_d, C_d, Vx_d = (
-        torch.movedim(t, -1, 1)
-        for t in torch.func.jacfwd(elementwise)(theta.detach()))
+    diag_d, b_d, C_d, Vx_d = torch.func.jacfwd(elementwise)(theta.detach())
+    diag_d, b_d, Vx_d = (torch.movedim(t, -1, 1) for t in (diag_d, b_d, Vx_d))
     P, k, n1, n2 = diag_d.shape
     xk = x.detach().unsqueeze(1).expand(P, k, n1, n2)
-    if mode == 'dense':
-        off = torch.einsum('cdijkl,cjl->cdik', C_d, x.detach())
+    if mode == 'kron':
+        off = kron_tangent_offdiag(system['A1s'].detach(),
+                                   system['V2'].detach(),
+                                   torch.movedim(C_d, -1, 0), x.detach())
+    elif mode == 'dense':
+        off = torch.einsum('cijkld,cjl->cdik', C_d, x.detach())
     else:
+        C_d = torch.movedim(C_d, -1, 1)
         edges = [_repeat(system[f], k).long()
                  for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2')]
         off = gather_offdiag(
@@ -470,17 +581,25 @@ def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode):
 
 
 def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
-               maxiter, tangents=False, return_resnorm=False):
+               maxiter, tangents=False, return_resnorm=False, kron=None,
+               route=None):
     """Solve a batch of graph-pair MLGK systems (see :func:`mlgk_setup`
     for the arguments; ``lmin`` is 0 or 1, ``maxiter`` the CG step bound).
+
+    ``route`` is the chunk's route as its plan named it before any launch
+    (``JobPlan.route``, by :func:`solve_route`): ``'kron'`` builds the kron
+    system with the ``kron`` plan (:class:`._kron.KronPlan`), whatever the
+    mode; ``'resident'`` and ``'stream'`` pick mode ``'cuda'``'s kernels.
+    None takes mode ``'kron'``'s route for mode ``'kron'``, and names mode
+    ``'cuda'``'s from the chunk's shapes (:func:`chunk_route`, kron aside).
 
     The value solve runs at ``ops['ftol']`` through :func:`solve_linear`,
     so x is differentiable by autograd in theta. With ``tangents``, the
     n_theta tangent systems of every pair run at ``ops['gtol']``: in
-    :func:`cuda_tangent_solver`'s route for mode ``'cuda'``, in the plain
-    PCG for the others. The four phases run in ``torch.profiler``
-    ranges named ``mlgk_setup``, ``mlgk_value_solve``, ``mlgk_tangents``
-    and ``mlgk_tangent_solve``.
+    :func:`cuda_tangent_solver`'s route for mode ``'cuda'``, side by side
+    through the pair's factors for kron, in the plain PCG for the others.
+    The four phases run in ``torch.profiler`` ranges named ``mlgk_setup``,
+    ``mlgk_value_solve``, ``mlgk_tangents`` and ``mlgk_tangent_solve``.
 
     ``return_resnorm`` adds each pair's relative residual ``||b - A x|| /
     ||b||`` of the value solve, by one plain matvec on x (converged float32
@@ -495,13 +614,20 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     x_dot: [P, n1, n2, n_theta] d x / d theta (only with ``tangents``)
     resnorm: [P] relative residuals (only with ``return_resnorm``)
     """
+    if route == 'kron':
+        mode = 'kron'
+    elif mode == 'cuda' and route is None:
+        route = chunk_route(
+            mode, ops['esrc_1'].shape[1], ops['esrc_2'].shape[1],
+            ops['node_mask_1'].shape[1], ops['node_mask_2'].shape[1],
+            ops['ew_1'].device)
     record = torch.profiler.record_function
     with record('mlgk_setup'):
         s = mlgk_setup(theta, ops, knode=knode, kedge=kedge,
-                       n_p_theta=n_p_theta, mode=mode)
+                       n_p_theta=n_p_theta, mode=mode, kron=kron)
     Vx, valid = s['Vx'], s['valid']
     with record('mlgk_value_solve'):
-        x = solve_linear(s, mode, maxiter)
+        x = solve_linear(s, mode, maxiter, route)
     resnorm = None
     if return_resnorm:
         sd = _detached(s)
@@ -516,7 +642,7 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     if tangents:
         with record('mlgk_tangents'):
             t = mlgk_tangents(theta, ops, s, x, knode=knode, kedge=kedge,
-                              n_p_theta=n_p_theta, mode=mode)
+                              n_p_theta=n_p_theta, mode=mode, kron=kron)
         rhs = t['rhs']
         sd = _detached(s)
         with record('mlgk_tangent_solve'):
@@ -524,7 +650,7 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
                 T = sd['T']
                 P, k, n1, n2 = rhs.shape
                 solver = cuda_tangent_solver(k, T.shape[1], T.shape[2], n1,
-                                             n2, T.device)
+                                             n2, T.device, route)
                 x_dot, _ = solver(
                     T, sd['esrc_1'], sd['edst_1'], sd['esrc_2'],
                     sd['edst_2'], sd['diag'].contiguous(),
