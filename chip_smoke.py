@@ -29,6 +29,10 @@ Drives the port's paths once each through their public entry points,
   (two cuBLAS products a CG step over Chebyshev factors, no T) or
   ``pcg_stream``, by the rule of ``_solver.solve_route`` and
   ``KRON_MIN_N``;
+- the Bayesian path of ``bench_nuts.py``: ``GPRLogProb`` over its 32
+  molecules and multi-chain NUTS (``inference.sample``, 8 chains), each
+  leapfrog's live chains in one batched Gram (``pcg_resident`` and
+  ``pcg_packed`` once a chunk);
 
 and checks every part of them:
 
@@ -165,7 +169,26 @@ and checks every part of them:
     residues), each by both routes and ``'auto'``, agreement, launches and
     value walls in turns, where ``KRON_MIN_N``'s crossover lies; the JAX
     kron fixture ``tests/fixtures/torch_port_kron_ref.npz`` within 1e-4
-    (K) and 5e-3 (dK), the JAX tests' tolerances.
+    (K) and 5e-3 (dK), the JAX tests' tolerances;
+17. the NUTS path of ``bench_nuts.py`` at full width
+    (``random_molecule_set(7, 32, (9, 24))``, its targets, alpha 1e-2,
+    ``normalize_y``, 8 chains, ``max_depth`` 6, jitter 0.05): the log
+    posterior and its gradient at the 8 thetas of
+    ``tests/fixtures/torch_port_nuts_ref.npz`` in one batched call against
+    JAX's (logp within 1e-4 |logp| + 1e-3, the gradient within 1e-3 max
+    |grad| + 1e-3) and against 8 single calls (K 1e-6, logp 1e-6
+    relative); ``pcg_resident`` and ``pcg_packed`` launched once a chunk of
+    the batched call and ``pcg_stream`` never; the fixture's GP NUTS
+    transition with JAX's draws (``n_leapfrog``, depth and divergence
+    equal, q and ``accept_prob`` within 1e-4); at q = 1 and q = 2 the log
+    posterior finite where JAX's is; a warmup of 100 transitions and a
+    resumed run of 40 draws: all finite, every chain's standard deviation
+    above 1e-6 in every dimension, the mean ``accept_prob`` within 0.15 of
+    0.8; split-R-hat, bulk ESS, the divergent share, draws/s,
+    min-bulk-ESS/s, time to first draw, leapfrog iterations/s with the live
+    chains and launches an iteration, an iteration's split (Gram and dK,
+    density, sampler), gradient Grams of 1 and 8 thetas, and two profiled
+    Grams.
 
 Prints ``KRON_MIN_N`` beside the phase 16 walls it follows (a route is
 faster on a set when every timed build of it beat every build of the
@@ -199,6 +222,13 @@ GRAD_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_grad_ref.npz'
 PROTEIN_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_protein_ref.npz'
 KRON_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_kron_ref.npz'
 GPR_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_gpr_ref.npz'
+NUTS_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_nuts_ref.npz'
+#: phase 17, bench_nuts.py's sampler: chains, warmup transitions, draws of
+#: the resumed run, tree depth, jitter of the start, dual averaging's target
+NUTS_CHAINS, NUTS_WARMUP, NUTS_DRAWS = 8, 100, 40
+NUTS_MAX_DEPTH, NUTS_JITTER, NUTS_TARGET = 6, 0.05, 0.8
+#: phase 17's profiled draws, and its timed Grams a shape of theta, in turns
+NUTS_PROFILED, NUTS_TURNS = 1, 10
 #: the GP fit of phase 15: bench_nuts.py's alpha, L-BFGS-B's tol, and the
 #: step of the central differences in log theta. The float32 Gram leaves
 #: ~3e-3 of rounding in the negative LML (~2.6e3 at theta0), so a step of
@@ -386,6 +416,14 @@ def pcg_bound(args, x, steps):
             else 'operations', floor / HBM_BYTES_PER_S * 1e3)
 
 
+#: the ``torch.profiler`` ranges of the port: the solver's phases
+#: (``_solver.mlgk_solve``) and the log density's (``inference/hmc.py``,
+#: ``inference/gp_logprob.py``)
+RANGES = ('mlgk_setup', 'mlgk_value_solve', 'mlgk_tangents',
+          'mlgk_tangent_solve', 'value_and_grad', 'gp_gram', 'gp_density',
+          'gp_gram_backward')
+
+
 def profile_build(build, what):
     """One profiled call of ``build`` (a Gram): wall time, device busy
     share, device time by kernel, host time in the solver's phases.
@@ -404,9 +442,9 @@ def profile_build(build, what):
     host = {}
     for e in events:
         us = e.time_range.elapsed_us()
-        if e.name.startswith('mlgk_'):
-            # the solver's phase ranges: the host side only (the profiler
-            # also marks each range's span of kernels on the device)
+        if e.name in RANGES:
+            # the solver's and the log density's ranges: the host side only
+            # (the profiler also marks each range's span on the device)
             if e.device_type == DeviceType.CPU:
                 host[e.name] = host.get(e.name, 0.0) + us
         elif e.device_type == DeviceType.CUDA:
@@ -422,9 +460,9 @@ def profile_build(build, what):
     solves = sum(us for name, us in device.items() if 'pcg_' in name)
     say(f'    device time in the PCG kernels {solves / 1e3:.3f} ms, in all '
         f'other kernels {(busy - solves) / 1e3:.3f} ms')
-    for name in ('mlgk_setup', 'mlgk_value_solve', 'mlgk_tangents',
-                 'mlgk_tangent_solve'):
-        say(f'    host {host.get(name, 0.0) / 1e3:9.3f} ms in {name}')
+    for name in RANGES:
+        if name.startswith('mlgk_') or name in host:
+            say(f'    host {host.get(name, 0.0) / 1e3:9.3f} ms in {name}')
     return wall_us / 1e3, {name: us / 1e3 for name, us in device.items()}
 
 
@@ -1011,6 +1049,378 @@ def kron_phase():
                       'pcg_stream': r['stream_wall_ms'],
                       'faster': faster(r)} for r in sets]}}
     return rows, stream_launches, line
+
+
+def batched_systems(factory, grp, idx1, idx2, thetas):
+    """The operands that a batched ``factory.gram(thetas)`` gives
+    ``pcg_resident`` and ``pcg_packed`` for the jobs (idx1, idx2) of a
+    group: the C * P systems at the C rows of ``thetas`` (log theta),
+    theta by theta, built as ``JobPlan.solve`` and ``mlgk_solve`` build
+    them, the tangents at the value solutions of ``pcg_resident``, the k
+    tangents of a pair one group that shares its operator. Returns (value
+    operands, tangent operands)."""
+    from graphdot_tpu_torch.kernel.marginalized._solver import (
+        _setup_over_thetas, mlgk_tangents)
+    from graphdot_tpu_torch.ops.pcg import largest_packed_k, pcg_resident
+    from graphdot_tpu_torch.util.iterable import flatten
+    kern = factory.kernel
+    theta = factory.full_theta(thetas)
+    ops = kern._operands(grp['bd1'], grp['bd2'], idx1, idx2)
+    kw = dict(knode=kern.node_kernel, kedge=kern.edge_kernel,
+              n_p_theta=len(list(flatten(kern.p.theta))), mode='cuda')
+    s = _setup_over_thetas(theta, ops, **kw)
+    iters = factory._group_maxiter(grp)
+    operator = [s[f].contiguous() for f in (
+        'T', 'esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'diag', 'precond')]
+    value = operator + [s['b'].contiguous(), s['tol'], iters]
+    x, _ = pcg_resident(*value)
+    rhs = mlgk_tangents(theta, ops, s, x, **kw)['rhs'].contiguous()
+    k = rhs.shape[1]
+    M1, M2 = operator[0].shape[1:]
+    check(largest_packed_k(k, M1, M2, grp['n1'], grp['n2'], x.device,
+                           shared=True) == k,
+          f'group ({grp["n1"]}, {grp["n2"]}): the {k} tangents of a pair are '
+          'one group')
+    tangent = [a[:, None] for a in operator] + [
+        rhs, s['gtol'].contiguous(), min(iters * k, 16384)]
+    return value, tangent
+
+
+def nuts_phase(warmup=NUTS_WARMUP, draws=NUTS_DRAWS):
+    """Phase 17: the Bayesian path of ``bench_nuts.py`` at full width (32
+    molecules, 8 chains, ``max_depth`` 6): ``GPRLogProb`` of the 8 chains
+    in one batched call against the JAX fixture, its launches, K and dK
+    against single calls, ``pcg_resident`` and ``pcg_packed`` against
+    their twins on the batched chunks' systems, the fixture's GP NUTS
+    transition draw for draw, q >= 1, a warmup of ``warmup`` transitions
+    and a resumed run of ``draws`` draws (timed as a user runs it), the
+    split of an iteration from a profiled run, the Gram of one theta as
+    [n] and as [1, n], and profiled Grams. Returns the kernels' launches
+    during the resumed run and their count a leapfrog iteration."""
+    import torch
+    from graphdot_tpu_torch.inference import (
+        GPRLogProb, HMCState, ess, nuts_step, resume_state, sample,
+        split_rhat)
+    from graphdot_tpu_torch.inference.gp_logprob import _mvn_logdensity
+    from graphdot_tpu_torch.kernel import MarginalizedGraphKernel
+    from graphdot_tpu_torch.microkernel import (
+        KroneckerDelta, SquareExponential, TensorProduct)
+    from graphdot_tpu_torch.ops.pcg import (
+        pcg_packed, pcg_packed_reference, pcg_resident,
+        pcg_resident_reference, pcg_stream)
+    from graphdot_tpu_torch.testing import random_molecule_set
+
+    counters = (pcg_resident, pcg_packed, pcg_stream)
+    card = nvidia_smi()
+    ref = np.load(NUTS_FIXTURE)
+
+    def kernel():
+        return MarginalizedGraphKernel(
+            TensorProduct(element=KroneckerDelta(0.2)),
+            TensorProduct(length=SquareExponential(0.3)), q=0.05,
+            device='cuda')
+
+    def launches():
+        return {c.__name__: c.launches for c in counters}
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    seed, count, lo, hi = (int(v) for v in ref['bench_set'])
+    t0 = t_phase = time.perf_counter()
+    graphs = random_molecule_set(seed, count, n_atoms_range=(lo, hi))
+    lp = GPRLogProb(kernel(), graphs, gp_targets(graphs),
+                    alpha=float(ref['bench_alpha']), normalize_y=True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    plan = lp.factory._plan
+    say(f'  bench_nuts.py: {count} molecules of {lo}-{hi} atoms, '
+        f'{len(plan.i_jobs)} jobs in groups '
+        + ', '.join(f'({g["n1"]}, {g["n2"]}) of {len(g["pos"])}'
+                    for g in plan.groups)
+        + f'; D = {lp.n_dims}; factory built in {t_build:.4f} s')
+    check(np.allclose(ref['thetas'][0], lp.theta0.astype(np.float32)),
+          'the fixture\'s first theta is theta0')
+
+    def chunks(eval_gradient, copies):
+        return sum(1 for g in plan.groups
+                   for _ in plan.chunks(g, eval_gradient, copies=copies))
+
+    C = len(ref['thetas'])
+    thetas = torch.as_tensor(ref['thetas'], device='cuda')
+    vg = lp.value_and_grad()
+    vg(thetas)       # the first call of the vectorized setup
+    reset()
+    logp, grad = vg(thetas)
+    torch.cuda.synchronize()
+    got = launches()
+    grad_chunks, value_chunks = chunks(True, C), chunks(False, C)
+    logp, grad = logp.cpu().numpy(), grad.cpu().numpy()
+    gtol = 1e-3 * np.abs(ref['grad']).max(axis=1) + 1e-3
+    gerr = np.abs(grad - ref['grad']).max(axis=1)
+    lerr = np.abs(logp - ref['logp'])
+    check(np.isfinite(logp).all() and (lerr <= 1e-4 * np.abs(ref['logp'])
+                                       + 1e-3).all()
+          and (gerr <= gtol).all(),
+          f'GPRLogProb at the fixture\'s {C} thetas, one batched call '
+          f'[{C}, {lp.n_dims}]: max |logp - logp_jax| {lerr.max():.3e} '
+          f'(limit 1e-4 |logp| + 1e-3), max |grad - grad_jax| per theta '
+          f'{gerr.max():.3e} <= 1e-3 max |grad| + 1e-3')
+    check(got['pcg_resident'] == grad_chunks
+          and got['pcg_packed'] == grad_chunks and got['pcg_stream'] == 0,
+          f'the batched gradient call launched pcg_resident '
+          f'{got["pcg_resident"]} and pcg_packed {got["pcg_packed"]} times, '
+          f'once a gradient chunk ({grad_chunks} chunks for {C} thetas; '
+          f'{chunks(True, 1)} for one), pcg_stream never')
+    reset()
+    with torch.no_grad():
+        values = lp(thetas)
+    torch.cuda.synchronize()
+    got = launches()
+    check(got['pcg_resident'] == value_chunks and got['pcg_packed'] == 0
+          and got['pcg_stream'] == 0
+          and np.allclose(values.cpu().numpy(), logp, rtol=1e-6, atol=0),
+          f'the batched value call launched pcg_resident '
+          f'{got["pcg_resident"]} times, once a value chunk ({value_chunks} '
+          f'for {C} thetas; {chunks(False, 1)} for one), and gave the same '
+          'logp')
+    K_batched, dK_batched = lp.factory.gram(thetas, eval_gradient=True)
+    dk_scale = float(dK_batched.abs().max())
+    k_err = dk_err = l_err = 0.0
+    for c in range(C):
+        K1, dK1 = lp.factory.gram(thetas[c], eval_gradient=True)
+        k_err = max(k_err, float((K1 - K_batched[c]).abs().max()))
+        dk_err = max(dk_err, float((dK1 - dK_batched[c]).abs().max()))
+        with torch.no_grad():
+            l1 = float(lp(thetas[c]))
+        l_err = max(l_err, abs(l1 - float(logp[c])) / abs(float(logp[c])))
+    check(k_err <= 1e-6 and dk_err <= 1e-6 * dk_scale and l_err <= 1e-6,
+          f'{C} single calls against the batched one: max |K - K_batched| '
+          f'{k_err:.3e} <= 1e-6, max |dK - dK_batched| {dk_err:.3e} <= 1e-6 '
+          f'max |dK| = {1e-6 * dk_scale:.3e}, max relative logp difference '
+          f'{l_err:.3e} <= 1e-6')
+
+    # the kernels against their plain twins on the systems of the batched
+    # calls: all C chains, and a live count below C (a NUTS iteration
+    # evaluates only the chains whose trajectories go on)
+    twin_errs = {'pcg_resident': 0.0, 'pcg_packed': 0.0}
+    for rows in (list(range(C)), [1, 4, 6]):
+        sub = thetas[rows]
+        for eval_gradient in (False, True):
+            for grp in plan.groups:
+                for _, idx1, idx2 in plan.chunks(grp, eval_gradient,
+                                                 copies=len(rows)):
+                    value, tangent = batched_systems(lp.factory, grp, idx1,
+                                                     idx2, sub)
+                    pairs = [('pcg_resident', pcg_resident,
+                              pcg_resident_reference, value)]
+                    if eval_gradient:
+                        pairs.append(('pcg_packed', pcg_packed,
+                                      pcg_packed_reference, tangent))
+                    kind = 'gradient' if eval_gradient else 'value'
+                    for name, wrapper, reference, args in pairs:
+                        x_k, _ = wrapper(*args)
+                        x_r, _ = reference(*args)
+                        err = float((x_k - x_r).abs().max())
+                        scale = float(x_r.abs().max())
+                        twin_errs[name] = max(twin_errs[name], err)
+                        check(bool(torch.isfinite(x_k).all())
+                              and err <= 1e-5 * scale,
+                              f'C = {len(rows)}, group ({grp["n1"]}, '
+                              f'{grp["n2"]}), {kind} chunk of {len(idx1)} '
+                              f'pairs, {args[7].shape[0]} systems: max '
+                              f'|x_{name} - x_twin| {err:.3e} <= 1e-5 max '
+                              f'|x| = {1e-5 * scale:.3e}')
+    say('  the batched systems against the twins: max |x - x_twin| '
+        + ', '.join(f'{k} {v:.3e}' for k, v in twin_errs.items()))
+
+    # the fixture's GP NUTS transition (gp_problem), with JAX's draws
+    seed, count, lo, hi = (int(v) for v in ref['gp_set'])
+    small = random_molecule_set(seed, count, n_atoms_range=(lo, hi))
+    lp_small = GPRLogProb(kernel(), small, np.random.default_rng(1).normal(
+        size=count), alpha=float(ref['gp_alpha']))
+
+    def f(name, dtype=torch.float32):
+        return torch.as_tensor(ref[name], dtype=dtype, device='cuda')
+
+    state = HMCState(q=f('nuts_q0')[None], logp=f('nuts_logp0')[None],
+                     grad=f('nuts_grad0')[None])
+    step_draws = {'p0': f('nuts_p0'),
+                  'direction': f('nuts_direction', torch.bool),
+                  'within': f('nuts_within'), 'merge': f('nuts_merge')}
+    state, info = nuts_step(step_draws, state, lp_small,
+                            float(ref['nuts_step']), f('nuts_inv_mass'),
+                            max_depth=int(ref['nuts_max_depth']))
+    q_err = float(np.abs(state.q[0].cpu().numpy() - ref['nuts_q']).max())
+    a_err = abs(float(info['accept_prob'][0]) - float(ref['nuts_accept']))
+    check(int(info['n_leapfrog'][0]) == int(ref['nuts_n_leapfrog'])
+          and int(info['depth'][0]) == int(ref['nuts_depth'])
+          and bool(info['divergent'][0]) == bool(ref['nuts_divergent'])
+          and q_err <= 1e-4 and a_err <= 1e-4,
+          f'the fixture\'s GP NUTS transition ({count} molecules) with '
+          f'JAX\'s draws: n_leapfrog {int(info["n_leapfrog"][0])}, depth '
+          f'{int(info["depth"][0])}, divergent '
+          f'{bool(info["divergent"][0])} as JAX; max |q - q_jax| '
+          f'{q_err:.3e} <= 1e-4, |accept - accept_jax| {a_err:.3e} <= 1e-4')
+
+    # out of the model's domain: q >= 1
+    cap = max(lp_small.factory._group_maxiter(g)
+              for g in lp_small.factory._plan.groups)
+    t0 = time.perf_counter()
+    ood_logp, ood_grad = lp_small.value_and_grad()(
+        torch.as_tensor(ref['ood_theta'], device='cuda'))
+    torch.cuda.synchronize()
+    t_ood = time.perf_counter() - t0
+    finite = np.isfinite(ood_logp.cpu().numpy())
+    check(np.array_equal(finite, ref['ood_finite']) and cap <= 64,
+          f'q = {np.exp(ref["ood_theta"][:, 1]).tolist()}: logp '
+          f'{ood_logp.cpu().numpy().tolist()}, finite {finite.tolist()} as '
+          f'JAX\'s; the call returned in {t_ood:.4f} s at <= {cap} CG steps '
+          'a solve')
+
+    # the sampling run, as bench_nuts.py: a warmup, then a resumed run.
+    # The sampler gets the log density as a user passes it, in a wrapper
+    # that only counts its calls (one a leapfrog iteration) and their rows
+    say(f'  checks done {time.perf_counter() - t_phase:.1f} s into the '
+        'phase')
+    evals = {'calls': 0, 'rows': 0}
+
+    def counted(t):
+        evals['calls'] += 1
+        evals['rows'] += t.shape[0]
+        return lp(t)
+
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    out = sample(counted, gen, n_chains=NUTS_CHAINS, n_warmup=warmup,
+                 n_samples=2, init=lp.theta0, max_depth=NUTS_MAX_DEPTH,
+                 init_jitter=NUTS_JITTER, device='cuda')
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    init2, step_size, inv_mass = resume_state(out)
+    say(f'  warmup of {warmup} transitions and 2 draws: {t_warm:.3f} s, '
+        f'{evals["calls"]} log-density calls; step size {step_size:.5f}, '
+        f'inverse mass {inv_mass.tolist()}')
+    evals.update(calls=0, rows=0)
+    reset()
+    t0 = time.perf_counter()
+    out2 = sample(counted, gen, n_chains=NUTS_CHAINS, n_samples=draws,
+                  init=init2, step_size=step_size, inv_mass=inv_mass,
+                  max_depth=NUTS_MAX_DEPTH, device='cuda')
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    run_launches = launches()
+    iters, rows = evals['calls'], evals['rows']
+    s = out2['samples'].cpu().numpy()
+    sd = s.std(axis=1)
+    accept = float(out2['accept_prob'].mean())
+    rhat, bulk = split_rhat(s), ess(s)
+    check(s.shape == (NUTS_CHAINS, draws, lp.n_dims)
+          and np.isfinite(s).all(),
+          f'{NUTS_CHAINS} chains x {draws} draws, all finite')
+    check((sd > 1e-6).all(),
+          f'every chain moves in every dimension: least standard deviation '
+          f'{sd.min():.3e} > 1e-6')
+    check(abs(accept - NUTS_TARGET) <= 0.15,
+          f'mean accept_prob {accept:.4f} within 0.15 of {NUTS_TARGET}')
+    check(run_launches['pcg_stream'] == 0 and run_launches['pcg_resident']
+          >= iters and run_launches['pcg_packed'] >= iters,
+          'every leapfrog iteration launched pcg_resident and pcg_packed, '
+          'pcg_stream never')
+    say(f'  split-R-hat {np.round(rhat, 4).tolist()}, bulk ESS '
+        f'{np.round(bulk, 2).tolist()}, divergent share '
+        f'{float(out2["divergent"].float().mean()):.4f}')
+    say(f'  [{card}] {draws} draws of {NUTS_CHAINS} chains in {dt:.4f} s: '
+        f'{NUTS_CHAINS * draws / dt:.4f} draws/s, min bulk ESS '
+        f'{bulk.min():.2f}, {bulk.min() / dt:.4f} min-bulk-ESS/s')
+    say(f'  [{card}] time to first draw (factory build and warmup): '
+        f'{t_build + t_warm:.3f} s ({t_build:.4f} + {t_warm:.3f})')
+    say(f'  [{card}] {iters} leapfrog iterations in {dt:.4f} s: '
+        f'{iters / dt:.4f} iterations/s, {dt / iters * 1e3:.3f} ms an '
+        f'iteration, {rows / iters:.4f} live chains an iteration mean; '
+        'launches an iteration: ' + ', '.join(
+            f'{k} {v / iters:.4f}' for k, v in run_launches.items()))
+
+    # the split of an iteration, from the profiler's ranges over a short
+    # resumed run: value_and_grad (hmc.py), and in it the Gram with dK
+    # (gp_gram), the density (gp_density) and the chain rule through dK
+    # (gp_gram_backward); the sampler's own work is the rest of the wall
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    evals.update(calls=0, rows=0)
+    state = resume_state(out2)[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sample(counted, gen, n_chains=NUTS_CHAINS, n_samples=NUTS_PROFILED,
+               init=state, step_size=step_size, inv_mass=inv_mass,
+               max_depth=NUTS_MAX_DEPTH, device='cuda')
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n = evals['calls']
+    t_profiled = time.perf_counter()
+    host, ranges, device = {}, {}, 0.0
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        if e.name in RANGES:
+            # a range: its host time, and its span on the device (from its
+            # first kernel's start to its last one's end, gaps included)
+            into = host if e.device_type == DeviceType.CPU else ranges
+            into[e.name] = into.get(e.name, 0.0) + us
+        elif e.device_type == DeviceType.CUDA:
+            device += us
+    say(f'  [{card}] profiled run of {NUTS_PROFILED} draws, {n} iterations: '
+        f'wall {wall_us / n / 1e3:.3f} ms an iteration under the profiler, '
+        f'device time {device / n / 1e3:.3f} ms (busy share '
+        f'{device / wall_us:.4f})')
+    for name in RANGES:
+        say(f'    {name}: host {host.get(name, 0.0) / n / 1e3:.3f} ms '
+            f'({host.get(name, 0.0) / wall_us:.4f} of the wall), device '
+            f'span {ranges.get(name, 0.0) / n / 1e3:.3f} ms an iteration')
+    rest = wall_us - host.get('value_and_grad', 0.0)
+    say(f'    the sampler\'s own work (wall less value_and_grad): '
+        f'{rest / n / 1e3:.3f} ms an iteration ({rest / wall_us:.4f} of the '
+        'wall)')
+    say(f'  the profiler\'s events read in '
+        f'{time.perf_counter() - t_profiled:.1f} s')
+
+    # the Gram of one theta as [n] and as [1, n] in turns, and of the C
+    # chains, by wall
+    walls = {}
+    for _ in range(NUTS_TURNS):
+        for key, t in (('[n]', thetas[0]), ('[1, n]', thetas[:1]),
+                       (f'[{C}, n]', thetas)):
+            for grad in (False, True):
+                t0 = time.perf_counter()
+                lp.factory.gram(t, eval_gradient=grad)
+                torch.cuda.synchronize()
+                walls.setdefault((key, grad), []).append(
+                    time.perf_counter() - t0)
+    for (key, grad), ws in walls.items():
+        ws = np.array(ws) * 1e3
+        say(f'  [{card}] {"gradient" if grad else "value"} Gram of theta '
+            f'{key}: median {np.median(ws):.3f} ms, min {ws.min():.3f}, max '
+            f'{ws.max():.3f} over {len(ws)} in turns (' + ', '.join(
+                f'{w:.3f}' for w in ws) + ')')
+    K, dK = lp.factory.gram(thetas, eval_gradient=True)
+    density = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        Kg = K.detach().requires_grad_(True)
+        value = _mvn_logdensity(Kg, lp._y, lp.alpha)
+        gK, = torch.autograd.grad(value.sum(), Kg)
+        torch.sum(gK[..., None] * dK, dim=(-3, -2))
+        torch.cuda.synchronize()
+        density.append(time.perf_counter() - t0)
+    say(f'  [{card}] the float64 density and its chain rule for {C} thetas: '
+        f'median {np.median(density) * 1e3:.3f} ms over 5')
+    profile_build(lambda: lp.factory.gram(thetas[0], eval_gradient=True),
+                  'gradient Gram of theta [n]')
+    profile_build(lambda: lp.factory.gram(thetas[:1], eval_gradient=True),
+                  'gradient Gram of theta [1, n]')
+    profile_build(lambda: vg(thetas), f'NUTS iteration ({C} chains)')
+    return run_launches, {k: v / iters for k, v in run_launches.items()}
 
 
 def main():
@@ -1803,6 +2213,10 @@ def main():
         'pcg_stream')
     kron_rows, kron_stream_launches, kron_min_n = kron_phase()
 
+    say('== 17. the NUTS path of bench_nuts.py: GPRLogProb over 32 '
+        'molecules, 8 chains')
+    nuts_launches, nuts_per_iteration = nuts_phase()
+
     def by_path(name):
         """A kernel's launches on each path, counted from 0 before it."""
         return {'value Gram (4)': launches if name == 'pcg_resident' else 0,
@@ -1814,7 +2228,9 @@ def main():
                 'factory gradient (14)': factory_launches[name],
                 'GP fit (15)': gp_launches[name],
                 'bench_protein classes, stream route (16)':
-                kron_stream_launches if name == 'pcg_stream' else 0}
+                kron_stream_launches if name == 'pcg_stream' else 0,
+                'nuts': nuts_launches[name],
+                'nuts, a leapfrog iteration': nuts_per_iteration[name]}
 
     def headline(row, rows):
         """A kernel's numbers on the summary line: those of its timed

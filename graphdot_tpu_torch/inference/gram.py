@@ -173,11 +173,14 @@ class GramFactory:
     def full_theta(self, theta_log_active):
         """The full linear-scale hyperparameter vector with the active
         entries at exp(``theta_log_active``) and the fixed ones kept, as a
-        float32 tensor on the kernel's device."""
+        float32 tensor on the kernel's device; [C, n_full] for C rows of
+        ``theta_log_active``."""
         t = torch.as_tensor(theta_log_active).detach().to('cpu',
                                                           torch.float64)
-        full = torch.tensor(self._full0, dtype=torch.float64)
-        full[torch.as_tensor(np.flatnonzero(self._active))] = torch.exp(t)
+        full = torch.tensor(self._full0, dtype=torch.float64).expand(
+            *t.shape[:-1], len(self._full0)).clone()
+        full[..., torch.as_tensor(np.flatnonzero(self._active))] = \
+            torch.exp(t)
         return full.to(self.kernel.device, torch.float32)
 
     def _group_maxiter(self, grp):
@@ -194,49 +197,71 @@ class GramFactory:
         residual ``||b - A x|| / ||b||`` of the value solves, a float:
         converged float32 solves give about 1e-7..1e-5, and far more means
         that ``maxiter`` cut solves short at this theta.
+
+        ``theta_log_active`` may also be [C, n_active], C hyperparameter
+        vectors (the chains of a sampler): K is then [C, n, n2], dK [C, n,
+        n2, n_active], and the residual a [C] numpy array, each equal to C
+        calls of one vector. On the resident route each chunk's value
+        systems for all C vectors go to the card in one ``pcg_resident``
+        launch and its tangent systems in one ``pcg_packed`` launch, with
+        the setup and its jacobian vectorized over the C vectors; groups on
+        the ``pcg_stream`` and kron routes solve the C vectors one after
+        another (:meth:`JobPlan.solve`).
         """
         theta = self.full_theta(theta_log_active)
+        batched = theta.dim() == 2
+        thetas = theta if batched else theta[None]
+        C = thetas.shape[0]
         active = torch.as_tensor(np.flatnonzero(self._active),
                                  device=theta.device)
-        K = theta.new_zeros(self._n, self._n2)
-        dK = theta.new_zeros(self._n, self._n2, len(active)) \
+        K = theta.new_zeros(C, self._n, self._n2)
+        dK = theta.new_zeros(C, self._n, self._n2, len(active)) \
             if eval_gradient else None
-        worst = 0.0
+        worst = torch.zeros(C, dtype=torch.float64)
         for grp in self._plan.groups:
             outs = list(self._plan.solve(
                 theta, grp, False, lmin, eval_gradient,
                 maxiter=self._group_maxiter(grp),
                 with_residual=with_residual))
+            if not batched:
+                outs = [tuple(None if o is None else o[None] for o in out)
+                        for out in outs]
             rows, cols = grp['rows'], grp['cols']
-            r = torch.cat([o[0] for o in outs])
-            K[rows, cols] = r
+            r = torch.cat([o[0] for o in outs], dim=1)
+            K[:, rows, cols] = r
             if not self._two:
-                K[cols, rows] = r
+                K[:, cols, rows] = r
             if eval_gradient:
-                dr = torch.cat([o[1] for o in outs])[:, active]
-                dK[rows, cols] = dr
+                dr = torch.cat([o[1] for o in outs], dim=1)[..., active]
+                dK[:, rows, cols] = dr
                 if not self._two:
-                    dK[cols, rows] = dr
+                    dK[:, cols, rows] = dr
             if with_residual:
-                worst = max(worst, float(torch.cat([o[2] for o in outs])
-                                         .max()))
+                worst = torch.maximum(worst, torch.cat(
+                    [o[2] for o in outs], dim=1).amax(dim=1).cpu().double())
 
         if self.normalize:
-            diag = torch.diagonal(K)
+            diag = torch.diagonal(K, dim1=-2, dim2=-1)
             d = torch.sqrt(diag)
-            K = K / d[:, None] / d[None, :]
+            outer = d[:, :, None] * d[:, None, :]
+            K = K / d[:, :, None] / d[:, None, :]
             if eval_gradient:
                 # d(R_ij / sqrt(R_ii R_jj)) = dR_ij / sqrt(R_ii R_jj)
                 #     - K_ij / 2 * (dR_ii / R_ii + dR_jj / R_jj)
-                ratio = torch.diagonal(dK).T / diag[:, None]
-                dK = dK / (d[:, None] * d[None, :])[:, :, None] \
-                    - 0.5 * K[:, :, None] * (ratio[:, None, :]
-                                             + ratio[None, :, :])
+                ratio = torch.diagonal(dK, dim1=1, dim2=2).transpose(1, 2) \
+                    / diag[:, :, None]
+                dK = dK / outer[..., None] - 0.5 * K[..., None] * (
+                    ratio[:, :, None, :] + ratio[:, None, :, :])
+        if eval_gradient:
+            dK = dK * thetas[:, None, None, active]   # d / d log theta
+        if not batched:
+            K = K[0]
+            dK = None if dK is None else dK[0]
         out = (K,)
         if eval_gradient:
-            out += (dK * theta[active],)   # d / d log theta
+            out += (dK,)
         if with_residual:
-            out += (worst,)
+            out += (worst.numpy() if batched else float(worst[0]),)
         return out if len(out) > 1 else K
 
     def iteration_stats(self, theta_log_active, lmin=0):

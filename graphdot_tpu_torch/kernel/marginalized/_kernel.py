@@ -195,10 +195,11 @@ class JobPlan:
         self._kron_theta = theta if auto else None
         return self.kron
 
-    def chunks(self, grp, eval_gradient=False, nodal=False):
+    def chunks(self, grp, eval_gradient=False, nodal=False, copies=1):
         """The group's jobs as (start, local indices 1, local indices 2) in
         chunks of :meth:`MarginalizedGraphKernel._chunk_size` pairs, sized
-        for the group's :meth:`route`."""
+        for the group's :meth:`route`, with ``copies`` systems a pair (one
+        a hyperparameter vector of a batched solve)."""
         route = self.route(grp)
         grid = None
         if route == 'kron':
@@ -207,7 +208,8 @@ class JobPlan:
                 ranks, sorted(grp['bd1']['edge_elist_feats']))))
         chunk = self.kernel._chunk_size(max(grp['n1'], grp['n2']),
                                         grp['m_pad'], eval_gradient, nodal,
-                                        route=route, grid=grid)
+                                        route=route, grid=grid,
+                                        copies=copies)
         for s in range(0, len(grp['pos']), chunk):
             yield s, grp['l1'][s:s + chunk], grp['l2'][s:s + chunk]
 
@@ -215,13 +217,29 @@ class JobPlan:
               maxiter=None, with_residual=False):
         """Solve a group's jobs chunk by chunk; yields
         :meth:`MarginalizedGraphKernel._solve_chunk`'s result for each, in
-        the group's :meth:`route`."""
+        the group's :meth:`route`.
+
+        ``theta`` may be [C, n_theta]: each result then leads with C. On the
+        resident route (and the plain modes) a chunk's C * P systems are
+        solved together, in chunks that count the C copies of each pair; on
+        the ``pcg_stream`` and kron routes the C thetas run one after
+        another."""
         route = self.route(grp)
-        for _, idx1, idx2 in self.chunks(grp, eval_gradient, nodal):
-            yield self.kernel._solve_chunk(
-                theta, grp['bd1'], grp['bd2'], idx1, idx2, grp['pf1'],
-                grp['pf2'], nodal, lmin, eval_gradient, maxiter=maxiter,
-                with_residual=with_residual, kron=self.kron, route=route)
+        batched = theta.dim() == 2
+        one_by_one = batched and route in ('stream', 'kron')
+        copies = theta.shape[0] if batched and not one_by_one else 1
+        for _, idx1, idx2 in self.chunks(grp, eval_gradient, nodal, copies):
+            def solve(t):
+                return self.kernel._solve_chunk(
+                    t, grp['bd1'], grp['bd2'], idx1, idx2, grp['pf1'],
+                    grp['pf2'], nodal, lmin, eval_gradient, maxiter=maxiter,
+                    with_residual=with_residual, kron=self.kron,
+                    route=route)
+            if one_by_one:
+                yield tuple(None if o[0] is None else torch.stack(o)
+                            for o in zip(*(solve(t) for t in theta)))
+            else:
+                yield solve(theta)
 
 
 class MarginalizedGraphKernel:
@@ -411,7 +429,9 @@ class MarginalizedGraphKernel:
         kernel values [P], and with ``eval_gradient`` d R / d theta
         [P(, n1, n2), n_dims], else None), as float32 tensors; with
         ``with_residual``, also the [P] relative residuals of the value
-        solves. ``maxiter`` defaults to :meth:`maxiter` of the padded
+        solves. A theta of [C, n_dims] solves the chunk at each row (in one
+        batch, :func:`._solver.mlgk_solve`), and every result leads with
+        C. ``maxiter`` defaults to :meth:`maxiter` of the padded
         size; ``kron`` is the plan's :class:`~._kron.KronPlan` and ``route``
         the chunk's (:meth:`JobPlan.route`; None: mode ``'cuda'``'s from
         the shapes, as :func:`._solver.mlgk_solve` says)."""
@@ -434,20 +454,26 @@ class MarginalizedGraphKernel:
             return (self.p.apply(t[:n_p], ops['node_mask_1'], pf1),
                     self.p.apply(t[:n_p], ops['node_mask_2'], pf2))
 
+        batched = theta.dim() == 2
+        if batched:
+            # the C * P systems theta by theta -> [C, P, ...]
+            out = tuple(o.unflatten(0, (theta.shape[0], -1)) for o in out)
         x = out[0]
-        p1, p2 = weights(theta)
+        p1, p2 = (torch.func.vmap(weights) if batched else weights)(theta)
         R = weight_by_p(x, p1, p2)
         dR = None
         if eval_gradient:
             # product rule of weight_by_p: dR = x_dot o w + x o w_dot, with
             # w = p1 p2^T
-            w_dot = torch.func.jacfwd(
-                lambda t: weight_by_p(1.0, *weights(t)))(theta.detach())
+            jacobian = torch.func.jacfwd(
+                lambda t: weight_by_p(1.0, *weights(t)))
+            w_dot = (torch.func.vmap(jacobian) if batched else jacobian)(
+                theta.detach())
             dR = out[3] * weight_by_p(1.0, p1, p2)[..., None] \
                 + x[..., None] * w_dot
         if not nodal:
-            R = torch.sum(R, dim=(1, 2))
-            dR = None if dR is None else torch.sum(dR, dim=(1, 2))
+            R = torch.sum(R, dim=(-2, -1))
+            dR = None if dR is None else torch.sum(dR, dim=(-3, -2))
         if with_residual:
             return R, dR, out[-1]
         return R, dR
@@ -459,7 +485,7 @@ class MarginalizedGraphKernel:
         return min(n_pad * n_pad, 10000)
 
     def _chunk_size(self, n_pad, m_pad, eval_gradient=False, nodal=False,
-                    route=None, grid=None):
+                    route=None, grid=None, copies=1):
         """Job-chunk size bounded by the solver's working-set memory
         (~256 MB of float32 per chunk; ~4 GB for pairs that run in
         ``pcg_stream``, whose launch overhead and three grid barriers per
@@ -469,7 +495,9 @@ class MarginalizedGraphKernel:
         as in the JAX package. ``route`` defaults to the one of mode
         ``'cuda'`` without kron (:func:`._solver.chunk_route`) for the
         padded sizes; on the kron route, ``grid`` is the tensor grid's
-        size R."""
+        size R. ``copies`` systems a pair (a batched solve's C
+        hyperparameter vectors) multiply the working set of a pair, and
+        divide the cap of 4096 pairs a chunk."""
         n_theta = max(int(self.n_dims), 1)
         nn = n_pad * n_pad
         mode = self.backend.mode
@@ -498,7 +526,8 @@ class MarginalizedGraphKernel:
             per_pair *= 1 + n_theta
             if nodal:
                 per_pair += nn * n_theta
-        return int(np.clip(budget // per_pair, 1, 4096))
+        return int(np.clip(budget // (per_pair * copies), 1,
+                           max(4096 // copies, 1)))
 
     def _size_classes(self, graphs, align=8):
         """Partition graph indices into padded-size classes."""

@@ -363,6 +363,15 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode, kron=None):
     return system
 
 
+def _setup_over_thetas(theta, ops, **kwargs):
+    """:func:`mlgk_setup` at every row of theta [C, n_theta], vectorized over
+    the rows by ``torch.func.vmap``: each of the returned tensors holds the
+    C systems of every pair of ``ops`` theta by theta, [C * P, ...] (the
+    edge lists and the tol repeated a theta)."""
+    s = torch.func.vmap(lambda t: mlgk_setup(t, ops, **kwargs))(theta)
+    return {f: v.flatten(0, 1) for f, v in s.items()}
+
+
 def _repeat(a, k):
     """Each pair's entry k times in a row: [P, ...] -> [P * k, ...]."""
     return a if k == 1 else a.repeat_interleave(k, dim=0)
@@ -539,7 +548,10 @@ def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode,
 
     Parameters
     ----------
-    theta, ops, knode, kedge, n_p_theta, mode, kron: as :func:`mlgk_setup`.
+    theta, ops, knode, kedge, n_p_theta, mode, kron: as :func:`mlgk_setup`;
+        theta may be [C, n_theta] (not on kron), and then ``system`` and
+        ``x`` hold the C * P systems theta by theta, as :func:`mlgk_solve`
+        lays them out, and so does the result.
     system: :func:`mlgk_setup`'s output at theta.
     x: [P, n1, n2] the systems' solutions at theta.
 
@@ -560,7 +572,14 @@ def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode,
             coupling = s['W' if mode == 'dense' else 'T']
         return s['diag'], s['b'], coupling, s['Vx']
 
-    diag_d, b_d, C_d, Vx_d = torch.func.jacfwd(elementwise)(theta.detach())
+    jacobian = torch.func.jacfwd(elementwise)
+    if theta.dim() == 2:
+        # one vectorized jacobian for all C thetas, the systems theta-major
+        diag_d, b_d, C_d, Vx_d = (
+            d.flatten(0, 1)
+            for d in torch.func.vmap(jacobian)(theta.detach()))
+    else:
+        diag_d, b_d, C_d, Vx_d = jacobian(theta.detach())
     diag_d, b_d, Vx_d = (torch.movedim(t, -1, 1) for t in (diag_d, b_d, Vx_d))
     P, k, n1, n2 = diag_d.shape
     xk = x.detach().unsqueeze(1).expand(P, k, n1, n2)
@@ -606,6 +625,13 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     solves sit near 1e-7..1e-5; far above that, ``maxiter`` cut the solve
     short).
 
+    theta may also be [C, n_theta], C hyperparameter vectors (not on the
+    kron route): the setup and the tangents are vectorized over them
+    (``torch.func.vmap``), and the C * P systems, laid out theta by theta,
+    go to the route's kernels together: one ``pcg_resident`` launch for the
+    values and one ``pcg_packed`` launch for the tangents on the resident
+    route. Every result then leads with C * P in that order.
+
     Returns
     -------
     x: [P, n1, n2] solution of the product-graph system (zero on padding)
@@ -614,17 +640,21 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     x_dot: [P, n1, n2, n_theta] d x / d theta (only with ``tangents``)
     resnorm: [P] relative residuals (only with ``return_resnorm``)
     """
+    batched = theta.dim() == 2
     if route == 'kron':
         mode = 'kron'
-    elif mode == 'cuda' and route is None:
+    if batched and mode == 'kron':
+        raise ValueError('the kron route solves one theta at a time')
+    if mode == 'cuda' and route is None:
         route = chunk_route(
             mode, ops['esrc_1'].shape[1], ops['esrc_2'].shape[1],
             ops['node_mask_1'].shape[1], ops['node_mask_2'].shape[1],
             ops['ew_1'].device)
     record = torch.profiler.record_function
     with record('mlgk_setup'):
-        s = mlgk_setup(theta, ops, knode=knode, kedge=kedge,
-                       n_p_theta=n_p_theta, mode=mode, kron=kron)
+        setup = _setup_over_thetas if batched else mlgk_setup
+        s = setup(theta, ops, knode=knode, kedge=kedge,
+                  n_p_theta=n_p_theta, mode=mode, kron=kron)
     Vx, valid = s['Vx'], s['valid']
     with record('mlgk_value_solve'):
         x = solve_linear(s, mode, maxiter, route)
@@ -674,5 +704,5 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
 
 
 def weight_by_p(x, p1, p2):
-    """R[i1, i2] = x[i1, i2] * p1_i1 * p2_i2."""
-    return x * p1[:, :, None] * p2[:, None, :]
+    """R[i1, i2] = x[i1, i2] * p1_i1 * p2_i2 (p1 [..., n1], p2 [..., n2])."""
+    return x * p1[..., :, None] * p2[..., None, :]

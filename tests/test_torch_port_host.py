@@ -8,9 +8,12 @@ originals array by array (same seeds, same numbers), check that graphs of
 either package batch in the other, and that the port's kernel runs on the
 card unless the caller asks for the CPU.
 """
+import fnmatch
 import os
+import re
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import numpy as np
@@ -63,6 +66,14 @@ def test_port_imports_nothing_of_the_jax_package():
         'f = GramFactory(k, random_molecule_set(0, 3, (5, 8)))\n'
         'assert f.gram(f.theta0).shape == (3, 3)\n'
         'assert GaussianProcessRegressor(k).device == "cuda"\n'
+        'import graphdot_tpu_torch.inference as inference\n'
+        'from graphdot_tpu_torch.inference import (\n'
+        '    GPRLogProb, GramFactory, sample, nuts_step, hmc_step,\n'
+        '    hmc_init, HMCState, smc_sample, advi, split_rhat, ess,\n'
+        '    da_init, da_update, save_chains, load_chains, resume_state)\n'
+        'assert len(inference.__all__) == 16, inference.__all__\n'
+        'lp = GPRLogProb(k, random_molecule_set(0, 3, (5, 8)), [0., 1., 2.])\n'
+        'assert lp(lp.theta0).shape == ()\n'
         'bad = sorted(m for m in sys.modules\n'
         '             if m == "graphdot_tpu" or m.startswith("graphdot_tpu.")\n'
         '             or m == "jax" or m.startswith(("jax.", "jaxlib")))\n'
@@ -180,3 +191,26 @@ def test_graph_copy_carries_no_converters_of_the_jax_package():
     h = Graph.from_networkx(g.to_networkx())
     assert len(h.nodes) == len(g.nodes) and len(h.edges) == len(g.edges)
     assert graphdot_tpu_torch.Graph is Graph
+
+
+def test_package_data_ships_every_kernel_source_and_include():
+    """An installed (non-editable) copy of the port builds its kernels from
+    the package data: every file under ``graphdot_tpu_torch/csrc/``, and
+    every quoted ``#include`` of its ``.cu`` files, matches a glob of
+    ``pyproject.toml``'s package data."""
+    with open(ROOT / 'pyproject.toml', 'rb') as f:
+        globs = tomllib.load(f)['tool']['setuptools']['package-data'][
+            'graphdot_tpu_torch']
+    package = ROOT / 'graphdot_tpu_torch'
+    csrc = package / 'csrc'
+    needed = {p.relative_to(package).as_posix() for p in csrc.iterdir()}
+    for source in csrc.glob('*.cu'):
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                               source.read_text(), flags=re.M):
+            included = (source.parent / name).resolve()
+            assert included.is_file(), (source.name, name)
+            needed.add(included.relative_to(package).as_posix())
+    assert {'csrc/pcg_block.cuh', 'csrc/pcg_resident.cu'} <= needed
+    missing = sorted(p for p in needed
+                     if not any(fnmatch.fnmatch(p, g) for g in globs))
+    assert not missing, missing
