@@ -33,6 +33,12 @@ Drives the port's paths once each through their public entry points,
   molecules and multi-chain NUTS (``inference.sample``, 8 chains), each
   leapfrog's live chains in one batched Gram (``pcg_resident`` and
   ``pcg_packed`` once a chunk);
+- the MaxiMin path of ``bench_maximin.py``: ``MaxiMin(...,
+  device='cuda')`` over its 128 molecules, the nodal solves in
+  ``pcg_resident``, the hotspot gradient's tangents in ``pcg_packed``, the
+  maximin reduction in torch on the card, and ``device_distance_fn``;
+- graphs from atoms: the QM7 surrogate's molecules through
+  ``Graph.from_ase``, their Gram, MaxiMin, ``M3`` and ``KernelOverMetric``;
 
 and checks every part of them:
 
@@ -181,14 +187,48 @@ and checks every part of them:
     the batched call and ``pcg_stream`` never; the fixture's GP NUTS
     transition with JAX's draws (``n_leapfrog``, depth and divergence
     equal, q and ``accept_prob`` within 1e-4); at q = 1 and q = 2 the log
-    posterior finite where JAX's is; a warmup of 100 transitions and a
-    resumed run of 40 draws: all finite, every chain's standard deviation
-    above 1e-6 in every dimension, the mean ``accept_prob`` within 0.15 of
-    0.8; split-R-hat, bulk ESS, the divergent share, draws/s,
-    min-bulk-ESS/s, time to first draw, leapfrog iterations/s with the live
-    chains and launches an iteration, an iteration's split (Gram and dK,
-    density, sampler), gradient Grams of 1 and 8 thetas, and two profiled
-    Grams.
+    posterior finite where JAX's is; a warmup of 50 transitions (half of
+    ``bench_nuts.py``'s 100, to keep the script's time) and a resumed run
+    of 40 draws: all finite, every chain's standard deviation above 1e-6
+    in every dimension, the mean ``accept_prob`` within 0.15 of 0.8;
+    split-R-hat, bulk ESS, the divergent share, draws/s, min-bulk-ESS/s,
+    time to first draw, leapfrog iterations/s with the live chains and
+    launches an iteration, gradient Grams of 1 and 8 thetas, and profiled
+    Grams and a profiled iteration;
+18. the MaxiMin path of ``bench_maximin.py`` at full width
+    (``random_molecule_set(11, 128, (9, 24))``, 8256 pairs,
+    ``KroneckerDelta(0.2)``, ``SquareExponential(0.3)``, q = 0.05): D
+    finite, symmetric, its diagonal <= 5e-3, off the diagonal within the D
+    limit of ``backend='edge'`` (1e-4 where both distances exceed 0.01,
+    else 5e-3: the sqrt of d = sqrt(1 - ratio) near d = 0); every hotspot
+    in range; ``device_distance_fn`` within the D limit of ``__call__``,
+    both within it of a float64 brute force over the kernel's nodal Gram of
+    the first 16 graphs, and the brute force's nodal distance at each
+    hotspot equal to D within it; ``pcg_resident`` launched once a self and
+    a value chunk, ``pcg_packed`` once a self and a hotspot-gradient chunk
+    of the gradient call, ``pcg_stream`` never; dD finite and, at the pairs
+    whose hotspots agree with ``edge`` (at least 0.95 of them), within
+    1e-3 max |dD| + 1e-4 of ``edge``; ``pcg_resident`` and ``pcg_packed``
+    within 1e-5 max |x| of their plain twins on the first and last value
+    and hotspot-gradient chunks of the call's own plan; D, the hotspots (where a pair's top
+    two distinct candidate distances, its nodal row and column minima,
+    differ by more than 1e-4) and dD off the diagonal against the
+    JAX fixture ``tests/fixtures/torch_port_maximin_ref.npz``; pairs/s of
+    ``device_distance_fn`` (CUDA events, median of 10 calls), the walls of
+    the value and gradient calls (min of 3, in turns), and profiled calls
+    (busy share, device time by kernel, host ms in the reduction and in
+    the solver's phases);
+19. graphs from atoms: the 100 molecules of the QM7 surrogate
+    (``dataset.qm7_fixture.load_qm7``) through ``Graph.from_ase(m,
+    use_pbc=False)``; their normalized Gram (the kernel of
+    ``tests/test_qm7_parity.py``, factory route) finite, symmetric, of unit
+    diagonal and within 1e-6 of ``edge``; MaxiMin over the first 32 within
+    the D limit of ``edge``; ``M3`` on the card for three pairs: its
+    kernel's nodal R within rtol 1e-4, atol 1e-5 of its scipy solve, the
+    distance within the D limit of the scipy route's;
+    ``KernelOverMetric`` over MaxiMin with ``eval_gradient=True`` over 16
+    molecules within rtol 0.1, atol 0.05 of central differences in log
+    theta (step 1e-3).
 
 Prints ``KRON_MIN_N`` beside the phase 16 walls it follows (a route is
 faster on a set when every timed build of it beat every build of the
@@ -225,15 +265,25 @@ GPR_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_gpr_ref.npz'
 NUTS_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_nuts_ref.npz'
 #: phase 17, bench_nuts.py's sampler: chains, warmup transitions, draws of
 #: the resumed run, tree depth, jitter of the start, dual averaging's target
-NUTS_CHAINS, NUTS_WARMUP, NUTS_DRAWS = 8, 100, 40
+NUTS_CHAINS, NUTS_WARMUP, NUTS_DRAWS = 8, 50, 40
 NUTS_MAX_DEPTH, NUTS_JITTER, NUTS_TARGET = 6, 0.05, 0.8
-#: phase 17's profiled draws, and its timed Grams a shape of theta, in turns
-NUTS_PROFILED, NUTS_TURNS = 1, 10
+#: phase 17's timed Grams a shape of theta, in turns
+NUTS_TURNS = 10
 #: the GP fit of phase 15: bench_nuts.py's alpha, L-BFGS-B's tol, and the
 #: step of the central differences in log theta. The float32 Gram leaves
 #: ~3e-3 of rounding in the negative LML (~2.6e3 at theta0), so a step of
 #: 1e-2 puts ~0.15 of noise in a difference quotient; 0.1 puts ~0.015
 GP_ALPHA, GP_TOL, GP_FD_STEP = 1e-2, 1e-4, 0.1
+#: phase 18, the path of bench_maximin.py: random_molecule_set(seed, n,
+#: atoms), the JAX fixture over its first graphs, the calls of
+#: device_distance_fn timed by CUDA events, the walls of __call__, and the
+#: graphs of the float64 brute force
+MAXIMIN_SET = (11, 128, (9, 24))
+MAXIMIN_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_maximin_ref.npz'
+MAXIMIN_FN_CALLS, MAXIMIN_REPEATS, MAXIMIN_BRUTE = 10, 3, 16
+#: phase 19: the QM7 surrogate's molecules in the MaxiMin check and in the
+#: KernelOverMetric gradient check, and the step of its central differences
+ATOMS_MAXIMIN, ATOMS_KOM, ATOMS_FD_STEP = 32, 16, 1e-3
 N_COMPARE = 512       # pairs in the kernel-vs-twin comparison
 BUILD_REPEATS = 5     # timed molecule Gram builds
 PROTEIN_REPEATS = 3   # timed protein Gram builds
@@ -421,13 +471,14 @@ def pcg_bound(args, x, steps):
 #: ``inference/gp_logprob.py``)
 RANGES = ('mlgk_setup', 'mlgk_value_solve', 'mlgk_tangents',
           'mlgk_tangent_solve', 'value_and_grad', 'gp_gram', 'gp_density',
-          'gp_gram_backward')
+          'gp_gram_backward', 'maximin_reduce')
 
 
-def profile_build(build, what):
+def profile_build(build, what, host_out=None):
     """One profiled call of ``build`` (a Gram): wall time, device busy
     share, device time by kernel, host time in the solver's phases.
-    Returns (wall ms, {kernel name: device ms})."""
+    Returns (wall ms, {kernel name: device ms}); ``host_out``, a dict,
+    receives the host ms of each range of RANGES."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -463,6 +514,8 @@ def profile_build(build, what):
     for name in RANGES:
         if name.startswith('mlgk_') or name in host:
             say(f'    host {host.get(name, 0.0) / 1e3:9.3f} ms in {name}')
+    if host_out is not None:
+        host_out.update({name: us / 1e3 for name, us in host.items()})
     return wall_us / 1e3, {name: us / 1e3 for name, us in device.items()}
 
 
@@ -1051,25 +1104,37 @@ def kron_phase():
     return rows, stream_launches, line
 
 
-def batched_systems(factory, grp, idx1, idx2, thetas):
-    """The operands that a batched ``factory.gram(thetas)`` gives
-    ``pcg_resident`` and ``pcg_packed`` for the jobs (idx1, idx2) of a
-    group: the C * P systems at the C rows of ``thetas`` (log theta),
-    theta by theta, built as ``JobPlan.solve`` and ``mlgk_solve`` build
-    them, the tangents at the value solutions of ``pcg_resident``, the k
-    tangents of a pair one group that shares its operator. Returns (value
-    operands, tangent operands)."""
+def twin_check(name, wrapper, reference, args, what):
+    """A kernel's wrapper against its plain twin on the same operands:
+    finite, and within 1e-5 max |x| of the twin. Returns max |x - x_twin|."""
+    import torch
+    x_k, _ = wrapper(*args)
+    x_r, _ = reference(*args)
+    err = float((x_k - x_r).abs().max())
+    scale = float(x_r.abs().max())
+    check(bool(torch.isfinite(x_k).all()) and err <= 1e-5 * scale,
+          f'{what}, {args[7].shape[0]} systems: max |x_{name} - x_twin| '
+          f'{err:.3e} <= 1e-5 max |x| = {1e-5 * scale:.3e}')
+    return err
+
+
+def batched_systems(kern, grp, idx1, idx2, theta, iters):
+    """The operands that ``JobPlan.solve`` gives ``pcg_resident`` and
+    ``pcg_packed`` for the jobs (idx1, idx2) of a group of ``kern``: the
+    C * P systems at the C rows of ``theta`` (the full linear-scale
+    vectors, [C, n_dims]), theta by theta, built as ``JobPlan.solve`` and
+    ``mlgk_solve`` build them with at most ``iters`` CG steps, the tangents
+    at the value solutions of ``pcg_resident``, the k tangents of a pair
+    one group that shares its operator. Returns (value operands, tangent
+    operands)."""
     from graphdot_tpu_torch.kernel.marginalized._solver import (
         _setup_over_thetas, mlgk_tangents)
     from graphdot_tpu_torch.ops.pcg import largest_packed_k, pcg_resident
     from graphdot_tpu_torch.util.iterable import flatten
-    kern = factory.kernel
-    theta = factory.full_theta(thetas)
     ops = kern._operands(grp['bd1'], grp['bd2'], idx1, idx2)
     kw = dict(knode=kern.node_kernel, kedge=kern.edge_kernel,
               n_p_theta=len(list(flatten(kern.p.theta))), mode='cuda')
     s = _setup_over_thetas(theta, ops, **kw)
-    iters = factory._group_maxiter(grp)
     operator = [s[f].contiguous() for f in (
         'T', 'esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'diag', 'precond')]
     value = operator + [s['b'].contiguous(), s['tol'], iters]
@@ -1094,8 +1159,8 @@ def nuts_phase(warmup=NUTS_WARMUP, draws=NUTS_DRAWS):
     their twins on the batched chunks' systems, the fixture's GP NUTS
     transition draw for draw, q >= 1, a warmup of ``warmup`` transitions
     and a resumed run of ``draws`` draws (timed as a user runs it), the
-    split of an iteration from a profiled run, the Gram of one theta as
-    [n] and as [1, n], and profiled Grams. Returns the kernels' launches
+    Gram of one theta as [n] and as [1, n], and profiled Grams and a
+    profiled iteration. Returns the kernels' launches
     during the resumed run and their count a leapfrog iteration."""
     import torch
     from graphdot_tpu_torch.inference import (
@@ -1211,8 +1276,10 @@ def nuts_phase(warmup=NUTS_WARMUP, draws=NUTS_DRAWS):
             for grp in plan.groups:
                 for _, idx1, idx2 in plan.chunks(grp, eval_gradient,
                                                  copies=len(rows)):
-                    value, tangent = batched_systems(lp.factory, grp, idx1,
-                                                     idx2, sub)
+                    value, tangent = batched_systems(
+                        lp.factory.kernel, grp, idx1, idx2,
+                        lp.factory.full_theta(sub),
+                        lp.factory._group_maxiter(grp))
                     pairs = [('pcg_resident', pcg_resident,
                               pcg_resident_reference, value)]
                     if eval_gradient:
@@ -1220,18 +1287,11 @@ def nuts_phase(warmup=NUTS_WARMUP, draws=NUTS_DRAWS):
                                       pcg_packed_reference, tangent))
                     kind = 'gradient' if eval_gradient else 'value'
                     for name, wrapper, reference, args in pairs:
-                        x_k, _ = wrapper(*args)
-                        x_r, _ = reference(*args)
-                        err = float((x_k - x_r).abs().max())
-                        scale = float(x_r.abs().max())
-                        twin_errs[name] = max(twin_errs[name], err)
-                        check(bool(torch.isfinite(x_k).all())
-                              and err <= 1e-5 * scale,
-                              f'C = {len(rows)}, group ({grp["n1"]}, '
-                              f'{grp["n2"]}), {kind} chunk of {len(idx1)} '
-                              f'pairs, {args[7].shape[0]} systems: max '
-                              f'|x_{name} - x_twin| {err:.3e} <= 1e-5 max '
-                              f'|x| = {1e-5 * scale:.3e}')
+                        twin_errs[name] = max(twin_errs[name], twin_check(
+                            name, wrapper, reference, args,
+                            f'C = {len(rows)}, group ({grp["n1"]}, '
+                            f'{grp["n2"]}), {kind} chunk of {len(idx1)} '
+                            'pairs'))
     say('  the batched systems against the twins: max |x - x_twin| '
         + ', '.join(f'{k} {v:.3e}' for k, v in twin_errs.items()))
 
@@ -1342,49 +1402,6 @@ def nuts_phase(warmup=NUTS_WARMUP, draws=NUTS_DRAWS):
         'launches an iteration: ' + ', '.join(
             f'{k} {v / iters:.4f}' for k, v in run_launches.items()))
 
-    # the split of an iteration, from the profiler's ranges over a short
-    # resumed run: value_and_grad (hmc.py), and in it the Gram with dK
-    # (gp_gram), the density (gp_density) and the chain rule through dK
-    # (gp_gram_backward); the sampler's own work is the rest of the wall
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    evals.update(calls=0, rows=0)
-    state = resume_state(out2)[0]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sample(counted, gen, n_chains=NUTS_CHAINS, n_samples=NUTS_PROFILED,
-               init=state, step_size=step_size, inv_mass=inv_mass,
-               max_depth=NUTS_MAX_DEPTH, device='cuda')
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    n = evals['calls']
-    t_profiled = time.perf_counter()
-    host, ranges, device = {}, {}, 0.0
-    for e in prof.events():
-        us = e.time_range.elapsed_us()
-        if e.name in RANGES:
-            # a range: its host time, and its span on the device (from its
-            # first kernel's start to its last one's end, gaps included)
-            into = host if e.device_type == DeviceType.CPU else ranges
-            into[e.name] = into.get(e.name, 0.0) + us
-        elif e.device_type == DeviceType.CUDA:
-            device += us
-    say(f'  [{card}] profiled run of {NUTS_PROFILED} draws, {n} iterations: '
-        f'wall {wall_us / n / 1e3:.3f} ms an iteration under the profiler, '
-        f'device time {device / n / 1e3:.3f} ms (busy share '
-        f'{device / wall_us:.4f})')
-    for name in RANGES:
-        say(f'    {name}: host {host.get(name, 0.0) / n / 1e3:.3f} ms '
-            f'({host.get(name, 0.0) / wall_us:.4f} of the wall), device '
-            f'span {ranges.get(name, 0.0) / n / 1e3:.3f} ms an iteration')
-    rest = wall_us - host.get('value_and_grad', 0.0)
-    say(f'    the sampler\'s own work (wall less value_and_grad): '
-        f'{rest / n / 1e3:.3f} ms an iteration ({rest / wall_us:.4f} of the '
-        'wall)')
-    say(f'  the profiler\'s events read in '
-        f'{time.perf_counter() - t_profiled:.1f} s')
-
     # the Gram of one theta as [n] and as [1, n] in turns, and of the C
     # chains, by wall
     walls = {}
@@ -1421,6 +1438,386 @@ def nuts_phase(warmup=NUTS_WARMUP, draws=NUTS_DRAWS):
                   'gradient Gram of theta [1, n]')
     profile_build(lambda: vg(thetas), f'NUTS iteration ({C} chains)')
     return run_launches, {k: v / iters for k, v in run_launches.items()}
+
+def d_limit(a, b):
+    """The limit on a distance matrix of phases 18-19: 1e-4 where both
+    sides' distance exceeds 0.01, else 5e-3 (the sqrt of d = sqrt(1 -
+    ratio) turns a 1e-6 error of the ratio into ~1e-3 near d = 0)."""
+    return np.where((a > 0.01) & (b > 0.01), 1e-4, 5e-3)
+
+
+def nodal_distances(R, sizes):
+    """Every pair's nodal distance matrix from a nodal Gram R, in float64:
+    {(a, b): sqrt(max(0, 1 - R_ab / sqrt(diag_a diag_b^T)))}."""
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    diag = np.diagonal(R)
+    out = {}
+    for a in range(len(sizes)):
+        for b in range(len(sizes)):
+            k12 = R[starts[a]:starts[a + 1], starts[b]:starts[b + 1]]
+            out[a, b] = np.sqrt(np.maximum(0, 1 - k12 / np.sqrt(np.outer(
+                diag[starts[a]:starts[a + 1]],
+                diag[starts[b]:starts[b + 1]]))))
+    return out
+
+
+def maximin_chunks(metric, graphs, eval_gradient):
+    """The chunks of ``metric(graphs, eval_gradient=...)``, built as its
+    call builds them: (self-similarity chunks, value chunks, hotspot
+    chunks); each launches the value kernel once, and with
+    ``eval_gradient`` the self and hotspot chunks launch ``pcg_packed``
+    once too."""
+    from graphdot_tpu_torch.kernel.marginalized._kernel import JobPlan
+    n = len(graphs)
+    jobs = np.arange(n)
+    i, j = np.triu_indices(n)
+    own = JobPlan(metric, graphs, jobs, jobs, metric.buckets)
+    plan = JobPlan(metric, graphs, i, j, metric.buckets)
+
+    def count(p, grad, nodal):
+        return sum(1 for g in p.groups for _ in p.chunks(g, grad, nodal))
+    return (count(own, eval_gradient, True), count(plan, False, True),
+            count(plan, True, False) if eval_gradient else 0)
+
+
+def maximin_phase():
+    """Phase 18: the path of ``bench_maximin.py`` at full width (128
+    molecules of 9-24 atoms, 8256 pairs): ``MaxiMin.__call__`` with and
+    without the hotspot gradient and ``device_distance_fn`` on the card,
+    against ``backend='edge'``, a float64 brute force, the JAX fixture; the
+    launches of each call; pairs/s of ``device_distance_fn``, the walls of
+    ``__call__`` and profiled calls. Returns the kernels' launches by
+    call."""
+    import torch
+    from graphdot_tpu_torch.kernel import MarginalizedGraphKernel
+    from graphdot_tpu_torch.kernel.marginalized._kernel import JobPlan
+    from graphdot_tpu_torch.metric import MaxiMin
+    from graphdot_tpu_torch.microkernel import (
+        KroneckerDelta, SquareExponential, TensorProduct)
+    from graphdot_tpu_torch.ops.pcg import (
+        pcg_packed, pcg_packed_reference, pcg_resident,
+        pcg_resident_reference, pcg_stream)
+    from graphdot_tpu_torch.testing import random_molecule_set
+
+    counters = (pcg_resident, pcg_packed, pcg_stream)
+    card = nvidia_smi()
+
+    def launches():
+        return {c.__name__: c.launches for c in counters}
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def make(backend='auto'):
+        return MaxiMin(TensorProduct(element=KroneckerDelta(0.2)),
+                       TensorProduct(length=SquareExponential(0.3)),
+                       q=0.05, backend=backend, device='cuda')
+
+    seed, count, atoms = MAXIMIN_SET
+    graphs = random_molecule_set(seed, count, n_atoms_range=atoms)
+    sizes = np.array([len(g.nodes) for g in graphs])
+    n_pairs = count * (count + 1) // 2
+    off = ~np.eye(count, dtype=bool)
+    metric = make()
+    own, value, _ = maximin_chunks(metric, graphs, False)
+    own_grad, _, hot = maximin_chunks(metric, graphs, True)
+    say(f'  bench_maximin.py: {count} molecules of {atoms[0]}-{atoms[1]} '
+        f'atoms, {n_pairs} pairs; chunks: {own} self, {value} value, '
+        f'{hot} hotspot-gradient ({own_grad} self with gradients)')
+
+    reset()
+    D, (h1, h2) = metric(graphs, return_hotspot=True)
+    torch.cuda.synchronize()
+    value_launches = launches()
+    check(value_launches == {'pcg_resident': own + value, 'pcg_packed': 0,
+                             'pcg_stream': 0},
+          f'metric(graphs) launched {value_launches}: pcg_resident once a '
+          f'self and a value chunk ({own} + {value}), nothing else')
+    check(D.shape == (count, count) and np.isfinite(D).all()
+          and np.array_equal(D, D.T) and np.abs(np.diag(D)).max() <= 5e-3,
+          f'D finite, symmetric, max |diag| {np.abs(np.diag(D)).max():.3e} '
+          '<= 5e-3 (bench_maximin.py\'s limit)')
+    check((h1 >= 0).all() and (h1 < sizes[:, None]).all()
+          and (h2 >= 0).all() and (h2 < sizes[None, :]).all(),
+          'every hotspot within its graphs\' nodes')
+    D_edge = make('edge')(graphs)
+    err = np.abs(D - D_edge)
+    check((err <= d_limit(D, D_edge))[off].all(),
+          f'off the diagonal within the D limit of backend=\'edge\': max '
+          f'|D - D_edge| {err[off].max():.3e} (where both d > 0.01: '
+          f'{err[off & (D > 0.01) & (D_edge > 0.01)].max():.3e} <= 1e-4)')
+
+    fn, theta0 = metric.device_distance_fn(graphs)
+    reset()
+    D_fn = fn(theta0)
+    torch.cuda.synchronize()
+    fn_launches = launches()
+    check(fn_launches == {'pcg_resident': value, 'pcg_packed': 0,
+                          'pcg_stream': 0},
+          f'device_distance_fn launched {fn_launches}: pcg_resident once a '
+          f'value chunk ({value}), nothing else')
+    D_fn = D_fn.cpu().numpy()
+    err = np.abs(D_fn - D)
+    check(np.isfinite(D_fn).all() and (err <= d_limit(D_fn, D)).all(),
+          f'device_distance_fn within the D limit of __call__: max |D_fn - '
+          f'D| {err.max():.3e}')
+
+    b = MAXIMIN_BRUTE
+    R = MarginalizedGraphKernel(
+        metric.node_kernel, metric.edge_kernel, q=metric.q,
+        device='cuda')(graphs[:b], nodal=True).astype(np.float64)
+    nodal = nodal_distances(R, sizes[:b])
+    D_bf = np.array([[max(nodal[x, y].min(axis=1).max(),
+                          nodal[x, y].min(axis=0).max())
+                      for y in range(b)] for x in range(b)])
+    for name, M in (('__call__', D[:b, :b]),
+                    ('device_distance_fn', D_fn[:b, :b])):
+        err = np.abs(M - D_bf)
+        check((err <= d_limit(M, D_bf)).all(),
+              f'{name} over the first {b} graphs within the D limit of a '
+              f'float64 brute force over kernel(G, nodal=True): max |D - '
+              f'D_brute| {err.max():.3e}')
+    at_hot = np.array([[nodal[x, y][h1[x, y], h2[x, y]] for y in range(b)]
+                       for x in range(b)])
+    err = np.abs(at_hot - D[:b, :b])
+    check((err <= d_limit(at_hot, D[:b, :b])).all(),
+          f'the brute force\'s nodal distance at each hotspot is D: max '
+          f'|d(hotspot) - D| {err.max():.3e}')
+    # a pair's hotspot is clear where its top two distinct candidate
+    # distances (row and column minima) differ by more than 1e-4
+    clear = np.zeros((b, b), dtype=bool)
+    for (x, y), d in nodal.items():
+        top = np.unique(np.concatenate([d.min(axis=1), d.min(axis=0)]))
+        clear[x, y] = len(top) < 2 or top[-1] - top[-2] > 1e-4
+
+    reset()
+    D_g, (g1, g2), dD = metric(graphs, return_hotspot=True,
+                               eval_gradient=True)
+    torch.cuda.synchronize()
+    grad_launches = launches()
+    check(grad_launches == {'pcg_resident': own_grad + value + hot,
+                            'pcg_packed': own_grad + hot, 'pcg_stream': 0},
+          f'metric(graphs, eval_gradient=True) launched {grad_launches}: '
+          f'pcg_resident once a self, value and hotspot chunk ({own_grad} + '
+          f'{value} + {hot}), pcg_packed once a self and hotspot chunk')
+    err = float(np.abs(D_g - D).max())
+    check(dD.shape == (count, count, len(metric.theta))
+          and np.isfinite(dD).all() and err <= 1e-6,
+          f'dD {list(dD.shape)} finite; D within 1e-6 of the value call\'s '
+          f'({err:.3e})')
+    D_ge, (e1, e2), dD_e = make('edge')(graphs, return_hotspot=True,
+                                        eval_gradient=True)
+    agree = (g1 == e1) & (g2 == e2) & off
+    limit = 1e-3 * np.abs(dD_e).max() + 1e-4
+    err = np.abs(dD - dD_e)[agree].max()
+    check(agree.sum() >= 0.95 * off.sum() and err <= limit,
+          f'hotspots as edge\'s at {agree.sum()} of {off.sum()} pairs off '
+          f'the diagonal (>= 0.95), dD there within 1e-3 max |dD| + 1e-4 = '
+          f'{limit:.3e} of edge: {err:.3e}')
+
+    # the kernels against their plain twins on this path's own chunks:
+    # the first and the last value chunk (nodal) and hotspot-gradient
+    # chunk of the call's plan, one batch padded to the largest graph
+    plan = JobPlan(metric, graphs, *np.triu_indices(count), metric.buckets)
+    theta = metric._theta_vector()[None]
+    for grp in plan.groups:
+        iters = metric.maxiter(max(grp['n1'], grp['n2']))
+        for eval_gradient, nodal in ((False, True), (True, False)):
+            chunks = list(plan.chunks(grp, eval_gradient, nodal))
+            for s, idx1, idx2 in {chunks[0][0]: chunks[0],
+                                  chunks[-1][0]: chunks[-1]}.values():
+                value, tangent = batched_systems(metric, grp, idx1, idx2,
+                                                 theta, iters)
+                what = (f'maximin group ({grp["n1"]}, {grp["n2"]}), '
+                        f'{"hotspot-gradient" if eval_gradient else "value"}'
+                        f' chunk at {s} of {len(idx1)} pairs')
+                if eval_gradient:
+                    twin_check('pcg_packed', pcg_packed,
+                               pcg_packed_reference, tangent, what)
+                else:
+                    twin_check('pcg_resident', pcg_resident,
+                               pcg_resident_reference, value, what)
+
+    ref = np.load(MAXIMIN_FIXTURE)
+    f = len(ref['D'])
+    offf = ~np.eye(f, dtype=bool)
+    check(tuple(ref['bench_set']) == (seed, f, *atoms) and f <= b,
+          f'the JAX fixture covers the first {f} of these graphs')
+    for name, M, J in (('D', D[:f, :f], ref['D']),
+                       ('device_distance_fn', D_fn[:f, :f], ref['D_fn'])):
+        err = np.abs(M - J)
+        check((err <= d_limit(M, J))[offf].all(),
+              f'{name} within the D limit of JAX\'s off the diagonal: max '
+              f'{err[offf].max():.3e}')
+    # dD off the diagonal only: at d = 0 (the sqrt's kink) the gradient
+    # divides the ratio's rounding by d + 1e-4
+    jagree = (h1[:f, :f] == ref['h1']) & (h2[:f, :f] == ref['h2'])
+    jlimit = 1e-3 * np.abs(ref['dD']).max() + 1e-4
+    err = np.abs(dD[:f, :f] - ref['dD'])
+    check(jagree[clear[:f, :f]].all()
+          and err[jagree & offf].max() <= jlimit,
+          f'hotspots as JAX\'s at all {clear[:f, :f].sum()} pairs with a '
+          f'clear hotspot (top two distinct candidates 1e-4 apart; '
+          f'{jagree.sum()} of {f * f} agree), dD there off the diagonal '
+          f'within {jlimit:.3e}: {err[jagree & offf].max():.3e} (on the '
+          f'diagonal {err[~offf].max():.3e})')
+
+    # timings: device_distance_fn by CUDA events, one call at a time
+    fn(theta0)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(MAXIMIN_FN_CALLS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(theta0)
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+    med = float(np.median(ms))
+    say(f'  [{card}] device_distance_fn over {count} molecules ({n_pairs} '
+        f'pairs): median {med:.3f} ms by CUDA events over {len(ms)} calls '
+        f'(min {min(ms):.3f}, max {max(ms):.3f}): {n_pairs / med * 1e3:.1f} '
+        'pairs/s')
+    walls = {False: [], True: []}
+    for _ in range(MAXIMIN_REPEATS):
+        for grad in (False, True):
+            t0 = time.perf_counter()
+            metric(graphs, eval_gradient=grad)
+            torch.cuda.synchronize()
+            walls[grad].append((time.perf_counter() - t0) * 1e3)
+    for grad, ws in walls.items():
+        say(f'  [{card}] metric(graphs{", eval_gradient=True" if grad else ""}'
+            f'): min {min(ws):.3f} ms over {len(ws)} in turns ('
+            + ', '.join(f'{w:.3f}' for w in ws) + ')')
+    profile_build(lambda: fn(theta0), 'device_distance_fn')
+    host_v, host_g = {}, {}
+    wall_v, _ = profile_build(lambda: metric(graphs), 'MaxiMin value',
+                              host_v)
+    wall_g, _ = profile_build(lambda: metric(graphs, eval_gradient=True),
+                              'MaxiMin gradient', host_g)
+    solves = sum(v for k, v in host_v.items() if k.startswith('mlgk_'))
+    say(f'  value call: host {host_v.get("maximin_reduce", 0.0):.3f} ms in '
+        f'the reduction against {solves:.3f} ms in the solver\'s phases')
+    tangents = host_g.get('mlgk_tangents', 0.0)
+    say(f'  gradient call: host mlgk_tangents {tangents:.3f} ms, '
+        f'{tangents / wall_g:.4f} of the profiled wall {wall_g:.3f} ms; '
+        f'host {host_g.get("maximin_reduce", 0.0):.3f} ms in the reduction')
+    return {'value': value_launches, 'device_distance_fn': fn_launches,
+            'gradient': grad_launches}
+
+
+def atoms_phase():
+    """Phase 19: graphs from atoms. The QM7 surrogate's 100 molecules
+    through ``Graph.from_ase``: their normalized Gram (factory route)
+    against ``edge``, MaxiMin over the first 32 against ``edge``, ``M3`` on
+    the card against its scipy solve, and ``KernelOverMetric`` over MaxiMin
+    with its gradient against central differences. Returns the kernels' launches during the Gram."""
+    import torch
+    from graphdot_tpu_torch.dataset.qm7_fixture import load_qm7
+    from graphdot_tpu_torch.experimental.metric import M3
+    from graphdot_tpu_torch.graph import Graph
+    from graphdot_tpu_torch.kernel import (
+        MarginalizedGraphKernel, Normalization)
+    from graphdot_tpu_torch.kernel._kernel_over_metric import (
+        KernelOverMetric)
+    from graphdot_tpu_torch.metric import MaxiMin
+    from graphdot_tpu_torch.microkernel import (
+        KroneckerDelta, SquareExponential, TensorProduct)
+    from graphdot_tpu_torch.ops.pcg import (
+        pcg_packed, pcg_resident, pcg_stream)
+
+    counters = (pcg_resident, pcg_packed, pcg_stream)
+
+    def make(cls=MarginalizedGraphKernel, backend='auto'):
+        """The kernel of tests/test_qm7_parity.py on the card."""
+        return cls(TensorProduct(element=KroneckerDelta(0.3)),
+                   TensorProduct(length=SquareExponential(0.3)), q=0.05,
+                   backend=backend, device='cuda')
+
+    mols, _, source = load_qm7()
+    t0 = time.perf_counter()
+    graphs = Graph.unify_datatype([Graph.from_ase(m, use_pbc=False)
+                                   for m in mols])
+    t_graphs = time.perf_counter() - t0
+    sizes = [len(g.nodes) for g in graphs]
+    edges = [len(g.edges) for g in graphs]
+    check(source == 'surrogate' and len(graphs) == 100,
+          f'{len(graphs)} molecules of the QM7 surrogate through '
+          f'Graph.from_ase in {t_graphs:.3f} s: {min(sizes)}-{max(sizes)} '
+          f'atoms, {min(edges)}-{max(edges)} edges')
+    for c in counters:
+        c.launches = 0
+    K = Normalization(make())(graphs)
+    torch.cuda.synchronize()
+    gram_launches = {c.__name__: c.launches for c in counters}
+    K_edge = Normalization(make(backend='edge'))(graphs)
+    err = float(np.abs(K - K_edge).max())
+    sym = float(np.abs(K - K.T).max())
+    diag = float(np.abs(np.diag(K) - 1).max())
+    check(np.isfinite(K).all() and diag <= 1e-6 and sym <= 1e-12
+          and err <= 1e-6
+          and gram_launches['pcg_resident'] + gram_launches['pcg_stream'] > 0,
+          f'the normalized Gram [{len(graphs)}, {len(graphs)}] finite, '
+          f'symmetric (max |K - K^T| {sym:.1e} <= 1e-12), unit diagonal (max '
+          f'|K_ii - 1| {diag:.1e} <= 1e-6); max |K - K_edge| {err:.3e} <= '
+          f'1e-6; launches {gram_launches}')
+
+    sub = graphs[:ATOMS_MAXIMIN]
+    D = make(MaxiMin)(sub)
+    D_edge = make(MaxiMin, 'edge')(sub)
+    err = np.abs(D - D_edge)
+    check(np.isfinite(D).all() and (err <= d_limit(D, D_edge)).all(),
+          f'MaxiMin over the first {len(sub)}: within the D limit of edge, '
+          f'max |D - D_edge| {err.max():.3e}')
+
+    m3 = M3(q=0.05, device='cuda')
+    for a, b in ((0, 1), (2, 7), (11, 11)):
+        g1, g2 = m3._graphs(mols[a], mols[b])
+        R_scipy = [m3._mlgk(x, y) for x, y in ((g1, g1), (g1, g2), (g2, g2))]
+        n1 = len(g1.nodes)
+        R = m3.kernel([g1, g2], nodal=True)
+        top, low = slice(n1), slice(n1, None)
+        pairs = [(r, R[b]) for r, b in zip(
+            R_scipy, ((top, top), (top, low), (low, low)))]
+        err = max(float(np.abs(r - k).max()) for r, k in pairs)
+        ok = all(np.allclose(r, k, rtol=1e-4, atol=1e-5) for r, k in pairs)
+        d = m3(mols[a], mols[b])
+        d_scipy = M3._maximin(np.diagonal(R_scipy[0]), R_scipy[1],
+                              np.diagonal(R_scipy[2]))
+        check(ok and abs(d - d_scipy) <= d_limit(d, d_scipy),
+              f'M3 ({a}, {b}) on the card: the nodal R of its kernel within '
+              f'rtol 1e-4, atol 1e-5 of scipy\'s sparse CG (max |dR| '
+              f'{err:.3e}); distance {d:.6f} within the D limit of the '
+              f'scipy route\'s {d_scipy:.6f}')
+
+    kom = KernelOverMetric(make(MaxiMin), 'v * exp(-d**2 / (2 * s**2))',
+                           'd', v=1.0, s=1.0)
+    few = graphs[:ATOMS_KOM]
+    K, dK = kom(few, eval_gradient=True)
+    theta0 = kom.theta.copy()
+    off = ~np.eye(len(few), dtype=bool)
+    worst = 0.0
+    for i in range(len(theta0)):
+        tp, tm = theta0.copy(), theta0.copy()
+        tp[i] += ATOMS_FD_STEP
+        tm[i] -= ATOMS_FD_STEP
+        kom.theta = tp
+        Kp = kom(few)
+        kom.theta = tm
+        Km = kom(few)
+        kom.theta = theta0
+        fd = (Kp - Km) / (2 * ATOMS_FD_STEP) / np.exp(theta0[i])
+        ok = np.abs(dK[:, :, i] - fd) <= 0.05 + 0.1 * np.abs(fd)
+        worst = max(worst, float(np.abs(dK[:, :, i] - fd)[off].max()))
+        check(ok[off].all(), f'KernelOverMetric over {len(few)} molecules: '
+              f'dK / d theta[{i}] within rtol 0.1, atol 0.05 of central '
+              'differences off the diagonal')
+    check(np.isfinite(K).all() and np.isfinite(dK).all(),
+          f'KernelOverMetric K and dK {list(dK.shape)} finite; max |dK - '
+          f'fd| off the diagonal {worst:.3e}')
+    return gram_launches
 
 
 def main():
@@ -2217,6 +2614,12 @@ def main():
         'molecules, 8 chains')
     nuts_launches, nuts_per_iteration = nuts_phase()
 
+    say('== 18. the MaxiMin path of bench_maximin.py: 128 molecules')
+    maximin_launches = maximin_phase()
+
+    say('== 19. graphs from atoms: the QM7 surrogate through from_ase')
+    atoms_launches = atoms_phase()
+
     def by_path(name):
         """A kernel's launches on each path, counted from 0 before it."""
         return {'value Gram (4)': launches if name == 'pcg_resident' else 0,
@@ -2230,7 +2633,12 @@ def main():
                 'bench_protein classes, stream route (16)':
                 kron_stream_launches if name == 'pcg_stream' else 0,
                 'nuts': nuts_launches[name],
-                'nuts, a leapfrog iteration': nuts_per_iteration[name]}
+                'nuts, a leapfrog iteration': nuts_per_iteration[name],
+                'maximin value (18)': maximin_launches['value'][name],
+                'maximin device_distance_fn (18)':
+                maximin_launches['device_distance_fn'][name],
+                'maximin gradient (18)': maximin_launches['gradient'][name],
+                'QM7 surrogate Gram (19)': atoms_launches[name]}
 
     def headline(row, rows):
         """A kernel's numbers on the summary line: those of its timed

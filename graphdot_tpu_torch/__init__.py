@@ -7,7 +7,10 @@ that computes on tensors is torch, and the product-graph PCG solve runs in
 hand-written CUDA kernels on the card: ``csrc/pcg_resident.cu`` for pairs
 that fit a block's shared memory, ``csrc/pcg_stream.cu`` for larger ones,
 and ``csrc/pcg_packed.cu`` for the hyperparameter gradient's tangent
-systems, the n_theta systems of a pair as one group.
+systems, the n_theta systems of a pair as one group. On top of the
+kernel sit the Gram factory, the Gaussian-process models, the samplers of
+``inference``, the graph metrics of ``metric`` and ``experimental``, and
+molecular graphs from atoms (``Graph.from_ase``, ``dataset``).
 """
 from .graph import Graph
 

@@ -3,8 +3,9 @@
 A copy of :mod:`graphdot_tpu.graph` (``Graph``, its frames, type inference
 and NetworkX converters), which the port carries so that it imports
 nothing of the JAX package. What differs from the original: ``Graph``
-has no ``from_ase``, ``from_pymatgen``, ``from_smiles`` or ``from_rdkit``
-converters yet, and :func:`batch_graphs` packs with numpy only
+has ``from_ase`` (:mod:`._from_ase`, with the adjacency rules of
+:mod:`.adjacency`) but no ``from_pymatgen``, ``from_smiles`` or
+``from_rdkit`` converters, and :func:`batch_graphs` packs with numpy only
 (:mod:`.batch`). Graphs of both packages are interchangeable: each
 package's batcher reads only ``nodes``, ``edges`` and ``cookie``.
 """
@@ -216,6 +217,14 @@ class Graph:
     def from_networkx(cls, graph, weight=None):
         """Convert from a NetworkX ``Graph``."""
         return _from_networkx(cls, graph, weight)
+
+    @classmethod
+    def from_ase(cls, atoms, adjacency='default', use_charge=False,
+                 use_pbc=True):
+        """Convert from ASE atoms (or any object with their interface, such
+        as ``dataset._atoms.SimpleAtoms``) to a molecular graph."""
+        from ._from_ase import _from_ase
+        return _from_ase(cls, atoms, adjacency, use_charge, use_pbc)
 
     def to_networkx(self):
         """Convert to a NetworkX ``Graph`` with all node and edge

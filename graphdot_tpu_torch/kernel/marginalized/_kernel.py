@@ -14,6 +14,9 @@ Non-nodal calls of 512 jobs or more run through a cached
 the sum-of-Kronecker route (``backend='kron'``, or ``'cuda'`` beyond a block
 with kron-eligible edge features), every call calibrates the Chebyshev
 ranks at its own hyperparameters first (:meth:`JobPlan.calibrate_kron`).
+The hotspot gradient of the MaxiMin metric (:meth:`MarginalizedGraphKernel.
+_solve_hotspot_grads`, the JAX class's ``grad='hotspot'``) gathers one
+nodal entry a pair and its gradient on the device, chunk by chunk.
 """
 import copy
 import numbers
@@ -214,7 +217,7 @@ class JobPlan:
             yield s, grp['l1'][s:s + chunk], grp['l2'][s:s + chunk]
 
     def solve(self, theta, grp, nodal, lmin, eval_gradient=False,
-              maxiter=None, with_residual=False):
+              maxiter=None, with_residual=False, hotspot=None):
         """Solve a group's jobs chunk by chunk; yields
         :meth:`MarginalizedGraphKernel._solve_chunk`'s result for each, in
         the group's :meth:`route`.
@@ -223,18 +226,25 @@ class JobPlan:
         resident route (and the plain modes) a chunk's C * P systems are
         solved together, in chunks that count the C copies of each pair; on
         the ``pcg_stream`` and kron routes the C thetas run one after
-        another."""
+        another. ``hotspot`` (one theta only) is a pair of index tensors
+        over the group's jobs, in the orientation they are solved in: each
+        chunk then yields one nodal entry a pair (``_solve_chunk``)."""
         route = self.route(grp)
         batched = theta.dim() == 2
+        if batched and hotspot is not None:
+            raise ValueError('hotspot entries are solved at one theta')
         one_by_one = batched and route in ('stream', 'kron')
         copies = theta.shape[0] if batched and not one_by_one else 1
-        for _, idx1, idx2 in self.chunks(grp, eval_gradient, nodal, copies):
+        for s, idx1, idx2 in self.chunks(grp, eval_gradient, nodal, copies):
+            hot = None if hotspot is None else \
+                tuple(h[s:s + len(idx1)] for h in hotspot)
+
             def solve(t):
                 return self.kernel._solve_chunk(
                     t, grp['bd1'], grp['bd2'], idx1, idx2, grp['pf1'],
                     grp['pf2'], nodal, lmin, eval_gradient, maxiter=maxiter,
                     with_residual=with_residual, kron=self.kron,
-                    route=route)
+                    route=route, hotspot=hot)
             if one_by_one:
                 yield tuple(None if o[0] is None else torch.stack(o)
                             for o in zip(*(solve(t) for t in theta)))
@@ -424,7 +434,8 @@ class MarginalizedGraphKernel:
 
     def _solve_chunk(self, theta, bd1, bd2, idx1, idx2, pf1, pf2, nodal,
                      lmin, eval_gradient=False, maxiter=None,
-                     with_residual=False, kron=None, route=None):
+                     with_residual=False, kron=None, route=None,
+                     hotspot=None):
         """Solve one chunk of jobs; returns (R [P, n1, n2] (nodal) or the
         kernel values [P], and with ``eval_gradient`` d R / d theta
         [P(, n1, n2), n_dims], else None), as float32 tensors; with
@@ -434,7 +445,14 @@ class MarginalizedGraphKernel:
         C. ``maxiter`` defaults to :meth:`maxiter` of the padded
         size; ``kron`` is the plan's :class:`~._kron.KronPlan` and ``route``
         the chunk's (:meth:`JobPlan.route`; None: mode ``'cuda'``'s from
-        the shapes, as :func:`._solver.mlgk_solve` says)."""
+        the shapes, as :func:`._solver.mlgk_solve` says).
+
+        ``hotspot``, a pair of [P] index tensors (h1, h2) on the device,
+        asks for one nodal entry a pair, as the JAX package's
+        ``grad='hotspot'``: the result is then (R[p, h1_p, h2_p] [P], and
+        with ``eval_gradient`` its gradient [P, n_dims]), gathered from the
+        tangents and from the weights' jacobian on the device, so the
+        [P, n1, n2, n_dims] nodal jacobian is never formed."""
         ops = self._operands(bd1, bd2, idx1, idx2)
         if maxiter is None:
             maxiter = self.maxiter(max(bd1['node_mask'].shape[1],
@@ -454,6 +472,9 @@ class MarginalizedGraphKernel:
             return (self.p.apply(t[:n_p], ops['node_mask_1'], pf1),
                     self.p.apply(t[:n_p], ops['node_mask_2'], pf2))
 
+        if hotspot is not None:
+            return self._hotspot_entries(theta, out, weights, hotspot,
+                                         eval_gradient)
         batched = theta.dim() == 2
         if batched:
             # the C * P systems theta by theta -> [C, P, ...]
@@ -477,6 +498,27 @@ class MarginalizedGraphKernel:
         if with_residual:
             return R, dR, out[-1]
         return R, dR
+
+    @staticmethod
+    def _hotspot_entries(theta, out, weights, hotspot, eval_gradient):
+        """R[p, h1_p, h2_p] of a chunk's solves ``out`` (x, and x_dot with
+        ``eval_gradient``) and, with ``eval_gradient``, its gradient by the
+        product rule of :func:`._solver.weight_by_p` at that entry alone:
+        x_dot[h] p1_h1 p2_h2 + x[h] d(p1_h1 p2_h2) / d theta."""
+        h1, h2 = hotspot
+        k = torch.arange(h1.shape[0], device=h1.device)
+
+        def w_hot(t):
+            p1, p2 = weights(t)
+            return p1[k, h1] * p2[k, h2]
+
+        x_h = out[0][k, h1, h2]
+        w = w_hot(theta)
+        if not eval_gradient:
+            return x_h * w, None
+        w_dot = torch.func.jacfwd(w_hot)(theta.detach())      # [P, n_dims]
+        return x_h * w, out[3][k, h1, h2] * w[:, None] \
+            + x_h[:, None] * w_dot
 
     @staticmethod
     def maxiter(n_pad):
@@ -577,6 +619,31 @@ class MarginalizedGraphKernel:
                 if eval_gradient:
                     raw_grad[p] = g
         return (raw, raw_grad) if eval_gradient else raw
+
+    def _solve_hotspot_grads(self, plan, h1, h2, lmin):
+        """The gradient in the hyperparameters (linear scale, all of them)
+        of one nodal entry a job, R[p, h1_p, h2_p]: [P, n_dims] numpy.
+        Counterpart of the JAX class's ``_solve_hotspot_grads``, used by
+        the MaxiMin hotspot gradient. The jobs run through ``plan`` (a
+        :class:`JobPlan` over the jobs, calibrated for kron where a group
+        may take it, as the value solves left it) in chunks sized as
+        the JAX class sizes them (``eval_gradient=True``, ``nodal=False``);
+        the tangents take each group's route (``pcg_packed`` groups on the
+        resident route). A job solved as (j, i) (``swap``) transposes its
+        hotspot. Only the [P, n_dims] entries leave the device."""
+        theta = self._theta_vector()
+        h1 = np.asarray(h1, dtype=np.int64)
+        h2 = np.asarray(h2, dtype=np.int64)
+        grad = np.empty((len(plan.i_jobs), self.n_dims))
+        for grp in plan.groups:
+            pos, swap = grp['pos'], grp['swap']
+            hot = tuple(torch.as_tensor(h, device=self.device) for h in (
+                np.where(swap, h2[pos], h1[pos]),
+                np.where(swap, h1[pos], h2[pos])))
+            grads = [dr for _, dr in plan.solve(theta, grp, False, lmin,
+                                                 True, hotspot=hot)]
+            grad[pos] = torch.cat(grads).cpu().numpy()
+        return grad
 
     @staticmethod
     def _check_types(graphs):

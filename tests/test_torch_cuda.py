@@ -636,3 +636,58 @@ def test_large_molecules_run_resident(card):
     np.testing.assert_allclose(K, K_edge, rtol=0, atol=1e-6)
     np.testing.assert_allclose(dK, dK_edge, rtol=0,
                                atol=1e-3 * np.abs(dK_edge).max() + 1e-5)
+
+
+def _maximin(device, **kw):
+    from graphdot_tpu_torch.metric import MaxiMin
+    return MaxiMin(TensorProduct(element=KroneckerDelta(0.2)),
+                   TensorProduct(length=SquareExponential(0.3)), q=0.05,
+                   device=device, **kw)
+
+
+def _d_limit(a, b):
+    """1e-4 where both distances exceed 0.01, else 5e-3 (the sqrt of
+    d = sqrt(1 - ratio) near d = 0)."""
+    return np.where((a > 0.01) & (b > 0.01), 1e-4, 5e-3)
+
+
+def test_maximin_device_distance_fn_on_the_card(card):
+    """``device_distance_fn`` on the card: one pcg_resident launch a value
+    chunk, no pcg_stream, within the D limit of its CPU twin and of
+    ``__call__`` on the card."""
+    graphs = random_molecule_set(11, 16, n_atoms_range=(9, 24))
+    fn, theta0 = _maximin(card).device_distance_fn(graphs)
+    assert theta0.device.type == 'cuda'
+    counts = [c.launches for c in (pcg_resident, pcg_stream)]
+    D = fn(theta0)
+    torch.cuda.synchronize()
+    assert D.device.type == 'cuda'
+    assert pcg_resident.launches > counts[0]
+    assert pcg_stream.launches == counts[1]
+    D = D.cpu().numpy()
+    fn_cpu, theta_cpu = _maximin('cpu').device_distance_fn(graphs)
+    D_cpu = fn_cpu(theta_cpu).numpy()
+    assert (np.abs(D - D_cpu) <= _d_limit(D, D_cpu)).all()
+    D_call = _maximin(card)(graphs)
+    assert (np.abs(D - D_call) <= _d_limit(D, D_call)).all()
+
+
+@pytest.mark.parametrize('buckets', [False, True])
+def test_maximin_hotspot_gradient_on_the_card(card, buckets):
+    """The hotspot gradient on the card (tangents in pcg_packed) against
+    its CPU twin: D within the D limit, dD within 1e-3 max |dD| + 1e-4 off
+    the diagonal at the pairs whose hotspots agree (at d = 0, the sqrt's
+    kink, the gradient divides rounding by d + 1e-4)."""
+    graphs = random_molecule_set(11, 12, n_atoms_range=(9, 24))
+    packed = pcg_packed.launches
+    D, hot, dD = _maximin(card, buckets=buckets)(
+        graphs, return_hotspot=True, eval_gradient=True)
+    assert pcg_packed.launches > packed
+    D_cpu, hot_cpu, dD_cpu = _maximin('cpu', buckets=buckets)(
+        graphs, return_hotspot=True, eval_gradient=True)
+    assert (np.abs(D - D_cpu) <= _d_limit(D, D_cpu)).all()
+    agree = (hot[0] == hot_cpu[0]) & (hot[1] == hot_cpu[1])
+    assert agree.mean() > 0.5
+    agree &= ~np.eye(len(graphs), dtype=bool)
+    assert np.abs(dD - dD_cpu)[agree].max() <= \
+        1e-3 * np.abs(dD_cpu).max() + 1e-4

@@ -48,7 +48,7 @@ def test_port_imports_nothing_of_the_jax_package():
         '    graphdot_tpu_torch.__path__, "graphdot_tpu_torch.")]\n'
         'for name in names:\n'
         '    importlib.import_module(name)\n'
-        'assert len(names) >= 25, names\n'
+        'assert len(names) >= 40, names\n'
         'from graphdot_tpu_torch.kernel import (\n'
         '    MarginalizedGraphKernel, Normalization)\n'
         'from graphdot_tpu_torch.microkernel import (\n'
@@ -74,6 +74,22 @@ def test_port_imports_nothing_of_the_jax_package():
         'assert len(inference.__all__) == 16, inference.__all__\n'
         'lp = GPRLogProb(k, random_molecule_set(0, 3, (5, 8)), [0., 1., 2.])\n'
         'assert lp(lp.theta0).shape == ()\n'
+        'import graphdot_tpu_torch.metric\n'
+        'import graphdot_tpu_torch.experimental\n'
+        'import graphdot_tpu_torch.graph.adjacency\n'
+        'import graphdot_tpu_torch.dataset\n'
+        'from graphdot_tpu_torch.metric import (\n'
+        '    MaxiMin, KernelInducedDistance)\n'
+        'from graphdot_tpu_torch.experimental.metric import M3\n'
+        'from graphdot_tpu_torch.dataset.qm7_fixture import load_qm7\n'
+        'from graphdot_tpu_torch.graph import Graph\n'
+        'mols = load_qm7(n=3)[0]\n'
+        'G = [Graph.from_ase(m, use_pbc=False) for m in mols]\n'
+        'm = MaxiMin(TensorProduct(element=KroneckerDelta(0.2)),\n'
+        '            TensorProduct(length=SquareExponential(0.3)), q=0.05,\n'
+        '            device="cpu")\n'
+        'assert m(G).shape == (3, 3)\n'
+        'assert M3(q=0.05, device="cpu")(mols[0], mols[1]) > 0\n'
         'bad = sorted(m for m in sys.modules\n'
         '             if m == "graphdot_tpu" or m.startswith("graphdot_tpu.")\n'
         '             or m == "jax" or m.startswith(("jax.", "jaxlib")))\n'
@@ -168,6 +184,36 @@ def test_kernel_defaults_to_the_card(monkeypatch):
         Tang2019MolecularKernel()
 
 
+def test_metrics_default_to_the_card(monkeypatch):
+    """``MaxiMin``, ``M3``, ``KernelOverMetric`` and ``RBFKernel`` ask for
+    the card unless told otherwise, and raise where torch finds none."""
+    from graphdot_tpu_torch.experimental.metric import M3
+    from graphdot_tpu_torch.kernel._kernel_over_metric import (
+        KernelOverMetric)
+    from graphdot_tpu_torch.kernel.rbf import RBFKernel
+    from graphdot_tpu_torch.metric import MaxiMin
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        MaxiMin(**_kernel_kwargs())
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        M3()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        RBFKernel('exp(-d)', 'd')
+
+    class NoDevice:
+        """A distance that names no device."""
+        theta = np.zeros(0)
+
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        KernelOverMetric(NoDevice(), 'v * exp(-d)', 'd', v=1.0)
+    metric = MaxiMin(**_kernel_kwargs(), device='cpu')
+    assert metric.device == torch.device('cpu')
+    assert M3(device='cpu').kernel.device == torch.device('cpu')
+    assert KernelOverMetric(metric, 'v * exp(-d)', 'd', v=1.0).device == \
+        torch.device('cpu')
+
+
 def test_kernel_runs_on_the_cpu_when_asked():
     graphs = port_testing.random_molecule_set(0, 3, (5, 8))
     kernel = MarginalizedGraphKernel(**_kernel_kwargs(), device='cpu')
@@ -183,9 +229,11 @@ def test_kernel_runs_on_the_cpu_when_asked():
 
 
 def test_graph_copy_carries_no_converters_of_the_jax_package():
-    """The converters that need ASE, pymatgen or RDKit are not copied yet;
+    """The copy carries ``from_ase`` (numpy and scipy only; duck-typed
+    atoms) and none of the converters that need pymatgen or RDKit;
     NetworkX round trips."""
-    for name in ('from_ase', 'from_pymatgen', 'from_smiles', 'from_rdkit'):
+    assert callable(Graph.from_ase)
+    for name in ('from_pymatgen', 'from_smiles', 'from_rdkit'):
         assert not hasattr(Graph, name)
     g = port_testing.random_molecule_set(1, 1, (5, 8))[0]
     h = Graph.from_networkx(g.to_networkx())
