@@ -313,13 +313,22 @@ def test_port_matches_maximin_fixture():
 
 
 def test_maximin_fixture_is_current():
+    """JAX's values regenerate the fixture by the contracts of this file:
+    D and ``device_distance_fn``'s D by the D limit (both float32, whose
+    sqrt near d = 0 turns the ratio's rounding, which differs with the
+    host's summation order, into ~1e-4), dD off the diagonal by the dD
+    limit (its diagonal divides rounding by d + 1e-4), the hotspots
+    exactly."""
     ref = np.load(FIXTURE)
     got = jax_reference()
-    for key in ('D', 'h1', 'h2'):
+    for key in ('h1', 'h2'):
         np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
-    for key in ('dD', 'D_fn'):
-        np.testing.assert_allclose(got[key], ref[key], rtol=0, atol=1e-6,
-                                   err_msg=key)
+    for key in ('D', 'D_fn'):
+        err = np.abs(got[key] - ref[key])
+        assert (err <= d_limit(got[key], ref[key])).all(), (key, err.max())
+    off = ~np.eye(len(ref['D']), dtype=bool)
+    limit = 1e-3 * np.abs(ref['dD']).max() + 1e-4
+    assert np.abs(got['dD'] - ref['dD'])[off].max() <= limit
 
 
 # ---------------------------------------------------------------------------

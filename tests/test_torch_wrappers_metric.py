@@ -3,7 +3,9 @@ package's, the cases of ``tests/test_wrappers.py`` (``test_rbf_kernel``,
 ``test_kernel_over_metric``) on the CPU (``device='cpu'``), and their
 default device.
 
-Limits: the RBF kernel and its gradient 1e-12 (float64 on both sides);
+Limits: the RBF kernel and its gradient 1e-12 (float64 on both sides)
+wherever the distance is not a rounding residual; on the diagonal of
+k(X), where it is, the value at d = 0 within ``_diagonal_limit``;
 ``KernelOverMetric`` over ``MaxiMin`` K 1e-4 (the D limit of
 ``tests/test_torch_metric.py`` through a Gaussian of width 1), dK
 1e-3 max |dK| + 1e-4, central differences in log theta (step 1e-3) rtol
@@ -11,6 +13,7 @@ Limits: the RBF kernel and its gradient 1e-12 (float64 on both sides);
 """
 import numpy as np
 import pytest
+import sympy
 
 torch = pytest.importorskip('torch')
 
@@ -54,23 +57,57 @@ def _jax_metric():
                       q=0.05, backend='edge')
 
 
+def _diagonal_limit(f, X):
+    """The limit on the diagonal of a Gram of ``f(d)`` over X.
+
+    There d is sqrt(sq) with sq = |x|^2 - 2 x.x + |x|^2 a rounding
+    residual: each of the three float64 dot products of length m errs by
+    at most m eps |x|^2 (any summation order), the doubled one twice
+    that, and the two subtractions add eps |x|^2 at most, so |sq| <=
+    c eps max |x|^2 with c = 4 m + 2. Both packages' diagonal is then
+    f(0) within |f'(0)| sqrt(c eps max |x|^2), plus the off-diagonal
+    limit 1e-12 for the higher orders. ``f`` is a SymPy expression of d
+    alone."""
+    d = sympy.Symbol('d')
+    slope = abs(float(sympy.diff(f, d).subs(d, 0)))
+    c = 4 * X.shape[1] + 2
+    residual = c * np.finfo(np.float64).eps * float((X * X).sum(1).max())
+    return slope * np.sqrt(residual) + 1e-12
+
+
 @pytest.mark.parametrize('expr,params', [
     ('exp(-0.5 * d**2 / s**2)', dict(s=0.7)),
     ('v * exp(-d / l) + c', dict(v=1.5, l=0.8, c=0.1)),
     ('(1 + d**2 / (2 * a * l**2))**(-a)', dict(a=2.0, l=1.3)),
 ])
 def test_rbf_kernel_matches_jax(expr, params):
+    """1e-12 wherever the distance is not a rounding residual; on the
+    diagonal of k(X), where it is, both packages within
+    ``_diagonal_limit`` of the value at d = 0 (of ``k.diag`` for K)."""
     k = RBFKernel(expr, 'd', device='cpu', **params)
     jk = JaxRBF(expr, 'd', **params)
     rng = np.random.default_rng(0)
     X, Y = rng.normal(size=(10, 3)), rng.normal(size=(7, 3))
-    np.testing.assert_allclose(k(X), jk(X), rtol=1e-12, atol=1e-12)
+    off = ~np.eye(len(X), dtype=bool)
+    f = sympy.sympify(expr).subs(params)
+    K, JK = k(X), jk(X)
+    np.testing.assert_allclose(K[off], JK[off], rtol=1e-12, atol=1e-12)
+    limit = _diagonal_limit(f, X)
+    for M in (K, JK):
+        np.testing.assert_allclose(np.diag(M), k.diag(X), rtol=0,
+                                   atol=limit)
     np.testing.assert_allclose(k(X, Y), jk(X, Y), rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(k.diag(X), jk.diag(X), rtol=1e-12)
     g, jg = k.gradient(X), jk.gradient(X)
     assert len(g) == len(params)
-    for a, b in zip(g, jg):
-        np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
+    for name, a, b in zip(params, g, jg):
+        np.testing.assert_allclose(a[off], b[off], rtol=1e-10, atol=1e-12)
+        df = sympy.diff(sympy.sympify(expr), name).subs(params)
+        at_zero = float(df.subs('d', 0))
+        limit = _diagonal_limit(df, X)
+        for M in (a, b):
+            np.testing.assert_allclose(np.diag(M), at_zero, rtol=0,
+                                       atol=limit)
     np.testing.assert_allclose(k.theta, jk.theta, rtol=0, atol=0)
 
 
