@@ -39,6 +39,15 @@ Drives the port's paths once each through their public entry points,
   maximin reduction in torch on the card, and ``device_distance_fn``;
 - graphs from atoms: the QM7 surrogate's molecules through
   ``Graph.from_ase``, their Gram, MaxiMin, ``M3`` and ``KernelOverMetric``;
+- the Tang & de Jong 2019 workflow: ``HierarchicalDrafter
+  (VarianceMinimizer(kernel))`` picks a core of 128 from 896 molecules and
+  ``LowRankApproximateGPR`` fits on it with L-BFGS-B, each evaluation a
+  two-sided gradient Gram of the 896 against the core and the core's own
+  (``pcg_resident`` and ``pcg_packed`` through factories cached by the
+  kernel), then predicts the 128 held out;
+- the other models: ``GPROutlierDetector``, ``GaussianFieldRegressor`` over
+  ``RBFOverDistance(MaxiMin)``, and the microkernels
+  ``RationalQuadratic``, ``Convolution`` and ``DotProduct`` in the Gram;
 
 and checks every part of them:
 
@@ -228,7 +237,47 @@ and checks every part of them:
     distance within the D limit of the scipy route's;
     ``KernelOverMetric`` over MaxiMin with ``eval_gradient=True`` over 16
     molecules within rtol 0.1, atol 0.05 of central differences in log
-    theta (step 1e-3).
+    theta (step 1e-3);
+20. the Tang & de Jong 2019 workflow with Nystrom at full size: a pool of
+    ``random_molecule_set(42, 1024, (9, 24))`` (``bench.py``'s generator
+    and atoms at 8 times its count), targets -10 |nodes| + N(0, 1), the
+    normalized Tang-style kernel; ``HierarchicalDrafter(VarianceMinimizer
+    (kernel))`` picks 128 distinct graphs of the first 896 (its wall and
+    launches); ``LowRankApproximateGPR(alpha = 1e-5, normalize_y,
+    optimizer)`` at theta0: the negative LML within 1e-4 relative and its
+    gradient within 1e-3 max |grad| + 1e-5 of ``backend='edge'``;
+    ``pcg_resident`` and ``pcg_packed`` within 1e-5 max |x| of their twins
+    on the first and the last value and tangent chunk of each group of the
+    factory that serves the two-sided 896 x 128 Gram; the fit converges,
+    every evaluation launching both kernels and ``pcg_stream`` never, no
+    factory built during it (the evaluations hit the kernel's cached
+    factories over (X, C) and C), the LML at the fit at most theta0's; its
+    wall, evaluations and wall an evaluation; ``predict`` of the 128 held
+    out with std and ``predict_loocv`` over the 896, finite, with walls;
+    one profiled evaluation (busy share); with core = training set on 64
+    graphs, the predictions within 1e-3 std(y) of the exact
+    ``GaussianProcessRegressor``'s; the 24-graph case of the JAX fixture
+    ``tests/fixtures/torch_port_models_ref.npz`` (core indices equal, LML
+    1e-4 relative, gradient 1e-3 max |grad| + 1e-3, means 1e-4 relative,
+    stds 1e-4);
+21. ``GPROutlierDetector`` over ``bench.py``'s 128 molecules, targets a
+    draw of the kernel's GP prior (std 10), 4 of them moved by +-50 from a
+    seeded generator, the start noises drawn by a seeded ``udist``: the
+    negative LML and gradient at the start within 1e-4 relative and 1e-3
+    max |grad| + 1e-5 of ``edge``; after the fit the 4 corrupted samples
+    have the 4 largest sigma;
+    ``GaussianFieldRegressor(RBFOverDistance(MaxiMin(...), sigma=0.5))``
+    over ``bench_maximin.py``'s 128 molecules with half of the labels
+    hidden: ``loocv2`` and its gradient at the start within 1e-4 relative
+    and 1e-3 max |grad| + 1e-4 of the same model over ``MaxiMin(backend=
+    'edge')``, then ``fit`` and ``predict`` (finite, walls); the
+    128-molecule normalized Gram with ``RationalQuadratic(0.3, 1.0)`` on
+    length in place of ``SquareExponential``, K within 1e-6 and dK within
+    1e-3 max |dK| + 1e-5 of ``edge``; the 'vario' graphs of
+    ``tests/test_mlgk.py`` with ``Convolution`` (and ``DotProduct().
+    normalized`` on the edge spectra) on the card, within 1e-6 max |R| of
+    ``edge`` and of the dense oracle's Gram stored in the JAX fixture, not
+    kron-eligible and no ``kron_pcg`` solve.
 
 Prints ``KRON_MIN_N`` beside the phase 16 walls it follows (a route is
 faster on a set when every timed build of it beat every build of the
@@ -284,6 +333,20 @@ MAXIMIN_FN_CALLS, MAXIMIN_REPEATS, MAXIMIN_BRUTE = 10, 3, 16
 #: phase 19: the QM7 surrogate's molecules in the MaxiMin check and in the
 #: KernelOverMetric gradient check, and the step of its central differences
 ATOMS_MAXIMIN, ATOMS_KOM, ATOMS_FD_STEP = 32, 16, 1e-3
+#: phase 20, the Tang & de Jong 2019 workflow with Nystrom: the pool
+#: random_molecule_set(seed, n, atoms) (bench.py's generator and atoms at 8
+#: times its count), its training part (the rest held out), the core, the
+#: model's alpha, L-BFGS-B's tol, and the training graphs of the full-rank
+#: check against the exact GPR
+NYSTROM_SET, NYSTROM_TRAIN, NYSTROM_CORE = (42, 1024, (9, 24)), 896, 128
+NYSTROM_ALPHA, NYSTROM_TOL, NYSTROM_FULL = 1e-5, 1e-5, 64
+MODELS_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_models_ref.npz'
+#: phase 21: the outlier detector's molecules (bench.py's 128), the seed of
+#: its targets and of the corrupted ones, how many and by how much, its L1
+#: weight; the seed of the Gaussian field's hidden labels and its sigma
+OUTLIER_SET, OUTLIER_SEED = (42, 128, (9, 24)), 5
+OUTLIERS, OUTLIER_SHIFT, OUTLIER_W = 4, 50.0, 0.5
+GFR_SEED, GFR_SIGMA = 7, 0.5
 N_COMPARE = 512       # pairs in the kernel-vs-twin comparison
 BUILD_REPEATS = 5     # timed molecule Gram builds
 PROTEIN_REPEATS = 3   # timed protein Gram builds
@@ -1820,6 +1883,475 @@ def atoms_phase():
     return gram_launches
 
 
+def models_kernel(backend='auto'):
+    """The Tang-style normalized kernel of phases 20-21 on the card:
+    ``KroneckerDelta(0.2)`` on element, ``SquareExponential(0.3)`` on
+    length, q = 0.05."""
+    from graphdot_tpu_torch.kernel import (
+        MarginalizedGraphKernel, Normalization)
+    from graphdot_tpu_torch.microkernel import (
+        KroneckerDelta, SquareExponential, TensorProduct)
+    return Normalization(MarginalizedGraphKernel(
+        TensorProduct(element=KroneckerDelta(0.2)),
+        TensorProduct(length=SquareExponential(0.3)), q=0.05,
+        backend=backend, device='cuda'))
+
+
+def launch_counts():
+    """Reset and read the PCG kernels' launch counters: returns a function
+    giving {name: launches since the reset}."""
+    from graphdot_tpu_torch.ops.pcg import (
+        pcg_packed, pcg_resident, pcg_stream)
+    counters = (pcg_resident, pcg_packed, pcg_stream)
+    for c in counters:
+        c.launches = 0
+
+    def read():
+        import torch
+        torch.cuda.synchronize()
+        return {c.__name__: c.launches for c in counters}
+    return read
+
+
+def factory_twin_checks(kernel, factory, what):
+    """``pcg_resident`` and ``pcg_packed`` against their plain twins on the
+    first and the last value chunk and gradient (tangent) chunk of each
+    group of a factory's plan, the systems built as the factory's gram
+    builds them (``batched_systems``)."""
+    from graphdot_tpu_torch.ops.pcg import (
+        pcg_packed, pcg_packed_reference, pcg_resident,
+        pcg_resident_reference)
+    plan = factory._plan
+    theta = kernel._theta_vector()[None]
+    for grp in plan.groups:
+        iters = factory._group_maxiter(grp)
+        for gradient in (False, True):
+            chunks = list(plan.chunks(grp, gradient))
+            for s, idx1, idx2 in {chunks[0][0]: chunks[0],
+                                  chunks[-1][0]: chunks[-1]}.values():
+                value, tangent = batched_systems(kernel, grp, idx1, idx2,
+                                                 theta, iters)
+                where = (f'{what} group ({grp["n1"]}, {grp["n2"]}), '
+                         f'{"tangent" if gradient else "value"} chunk at '
+                         f'{s} of {len(chunks)}')
+                if gradient:
+                    twin_check('pcg_packed', pcg_packed,
+                               pcg_packed_reference, tangent, where)
+                else:
+                    twin_check('pcg_resident', pcg_resident,
+                               pcg_resident_reference, value, where)
+
+
+def models_fixture_case(ref):
+    """The 24-graph case of ``tests/fixtures/torch_port_models_ref.npz`` on
+    the card: the core by the drafter, the Nystrom LML and gradient at
+    theta0 and the predictions of the held-out graphs, held by the limits
+    of ``tests/test_torch_lowrank_models.py``."""
+    from graphdot_tpu_torch.model.active_learning import (
+        HierarchicalDrafter, VarianceMinimizer)
+    from graphdot_tpu_torch.model.gaussian_process import (
+        LowRankApproximateGPR)
+    from graphdot_tpu_torch.testing import random_molecule_set
+    seed, count, lo, hi = (int(v) for v in ref['graph_set'])
+    n_train, n_core = int(ref['n_train']), int(ref['n_core'])
+    graphs = random_molecule_set(seed, count, (lo, hi))
+    y = gp_targets(graphs)
+    train = graphs[:n_train]
+    kernel = models_kernel()
+    core = HierarchicalDrafter(VarianceMinimizer(kernel))(
+        train, n_core, random_state=0)
+    model = LowRankApproximateGPR(kernel, alpha=float(ref['alpha']),
+                                  normalize_y=True, device='cuda')
+    model.fit([train[i] for i in core], train, y[:n_train])
+    lml, grad = model.log_marginal_likelihood(eval_gradient=True)
+    mean, std = model.predict(graphs[n_train:], return_std=True)
+    gtol = 1e-3 * float(np.abs(ref['grad']).max()) + 1e-3
+    check(np.array_equal(core, ref['core']) and np.array_equal(y, ref['y'])
+          and abs(lml - ref['lml']) <= 1e-4 * abs(ref['lml'])
+          and float(np.abs(grad - ref['grad']).max()) <= gtol
+          and np.allclose(mean, ref['mean'], rtol=1e-4, atol=0)
+          and float(np.abs(std - ref['std']).max()) <= 1e-4,
+          f'the JAX fixture\'s {count}-graph case: core {core.tolist()} as '
+          f'JAX\'s, LML {lml:.6f} vs {float(ref["lml"]):.6f} (rtol 1e-4), '
+          'max |grad - grad_jax| '
+          f'{float(np.abs(grad - ref["grad"]).max()):.3e} <= {gtol:.3e}, '
+          'means rtol 1e-4 (max rel '
+          f'{float(np.abs(mean / ref["mean"] - 1).max()):.2e}), max |std - '
+          f'std_jax| {float(np.abs(std - ref["std"]).max()):.2e} <= 1e-4')
+
+
+def nystrom_phase():
+    """Phase 20: the Tang & de Jong 2019 workflow with Nystrom at full
+    size. ``HierarchicalDrafter(VarianceMinimizer(kernel))`` picks the core
+    from the training graphs, ``LowRankApproximateGPR`` fits with L-BFGS-B
+    (every evaluation a two-sided gradient Gram of the training graphs
+    against the core and the core's own, through factories cached by the
+    kernel), then predicts the held-out graphs and runs ``predict_loocv``.
+    Checks the LML and gradient against ``backend='edge'``, the kernels
+    against their twins on the path's own chunks, the full-rank case
+    against the exact GPR and the JAX fixture. Returns the kernels'
+    launches by step (drafter, fit, predict)."""
+    import torch
+    from graphdot_tpu_torch.inference import gram as gram_module
+    from graphdot_tpu_torch.model.active_learning import (
+        HierarchicalDrafter, VarianceMinimizer)
+    from graphdot_tpu_torch.model.gaussian_process import (
+        GaussianProcessRegressor, LowRankApproximateGPR)
+    from graphdot_tpu_torch.testing import random_molecule_set
+
+    card = nvidia_smi()
+    seed, count, atoms = NYSTROM_SET
+    pool = random_molecule_set(seed, count, atoms)
+    y = gp_targets(pool)
+    train, held = pool[:NYSTROM_TRAIN], pool[NYSTROM_TRAIN:]
+    y_train = y[:NYSTROM_TRAIN]
+    n_cross = NYSTROM_TRAIN * NYSTROM_CORE
+    n_core_pairs = NYSTROM_CORE * (NYSTROM_CORE + 1) // 2
+    say(f'  pool random_molecule_set{(seed, count, atoms)}: '
+        f'{NYSTROM_TRAIN} training, {count - NYSTROM_TRAIN} held out; core '
+        f'{NYSTROM_CORE}: an evaluation solves {n_cross} cross pairs and '
+        f'{n_core_pairs} core pairs, 4 tangents each')
+    kernel = models_kernel()
+    launches = {}
+
+    read = launch_counts()
+    t0 = time.perf_counter()
+    core_idx = HierarchicalDrafter(VarianceMinimizer(kernel))(
+        train, NYSTROM_CORE, random_state=0)
+    drafter_s = time.perf_counter() - t0
+    launches['drafter'] = read()
+    check(len(core_idx) == NYSTROM_CORE
+          and len(set(core_idx.tolist())) == NYSTROM_CORE
+          and bool(np.all(np.diff(core_idx) > 0))
+          and launches['drafter']['pcg_resident'] > 0
+          and launches['drafter']['pcg_stream'] == 0,
+          f'[{card}] the drafter picked {NYSTROM_CORE} distinct sorted '
+          f'graphs of {NYSTROM_TRAIN} in {drafter_s:.3f} s; launches '
+          f'{launches["drafter"]}')
+    core = [train[i] for i in core_idx]
+
+    model = LowRankApproximateGPR(kernel, alpha=NYSTROM_ALPHA,
+                                  normalize_y=True, optimizer=True,
+                                  device='cuda')
+    model.C, model.X, model.y = core, train, y_train
+    theta0 = model.kernel.theta.copy()
+    t0 = time.perf_counter()
+    lml0, grad0 = model.log_marginal_likelihood(eval_gradient=True)
+    first_s = time.perf_counter() - t0
+    edge = LowRankApproximateGPR(models_kernel('edge'), alpha=NYSTROM_ALPHA,
+                                 normalize_y=True, device='cuda')
+    edge.C, edge.X, edge.y = core, train, y_train
+    t0 = time.perf_counter()
+    lml_e, grad_e = edge.log_marginal_likelihood(eval_gradient=True)
+    edge_s = time.perf_counter() - t0
+    gtol = 1e-3 * float(np.abs(grad_e).max()) + 1e-5
+    check(abs(lml0 - lml_e) <= 1e-4 * abs(lml_e)
+          and float(np.abs(grad0 - grad_e).max()) <= gtol,
+          f'at theta0 the negative LML {lml0:.6f} vs edge {lml_e:.6f} (rtol '
+          f'1e-4), max |grad - grad_edge| '
+          f'{float(np.abs(grad0 - grad_e).max()):.3e} <= {gtol:.3e} (first '
+          f'evaluation {first_s:.3f} s with the factories\' build, edge '
+          f'{edge_s:.3f} s)')
+    inner = kernel.kernel
+    cross = inner._get_call_factory(model.X, core)
+    own = inner._get_call_factory(core, None)
+    factory_twin_checks(inner, cross, 'Kxc')
+
+    evaluations = []
+    built = []
+    real_lml = model.log_marginal_likelihood
+    real_init = gram_module.GramFactory.__init__
+
+    def counted_lml(*args, **kwargs):
+        out = real_lml(*args, **kwargs)
+        evaluations.append(read())
+        return out
+
+    def counted_init(self, *args, **kwargs):
+        built.append(len(args[1]) if len(args) > 1 else None)
+        real_init(self, *args, **kwargs)
+
+    model.log_marginal_likelihood = counted_lml
+    gram_module.GramFactory.__init__ = counted_init
+    read = launch_counts()
+    t0 = time.perf_counter()
+    try:
+        model.fit(core, train, y_train, tol=NYSTROM_TOL)
+        torch.cuda.synchronize()
+    finally:
+        gram_module.GramFactory.__init__ = real_init
+        del model.log_marginal_likelihood
+    fit_s = time.perf_counter() - t0
+    launches['fit'] = read()
+    per_eval = [{k: v - (evaluations[i - 1][k] if i else 0)
+                 for k, v in e.items()} for i, e in enumerate(evaluations)]
+    n_evals = len(evaluations)
+    check(n_evals >= 2 and all(e['pcg_resident'] >= 1 and e['pcg_packed'] >= 1
+                               for e in per_eval)
+          and launches['fit']['pcg_stream'] == 0,
+          f'the fit converged after {n_evals} evaluations, each launching '
+          'pcg_resident and pcg_packed, pcg_stream never')
+    check(not built and inner._get_call_factory(model.X, core) is cross
+          and inner._get_call_factory(core, None) is own,
+          'every evaluation of the fit hit the kernel\'s cached factories '
+          f'(Kxc over {NYSTROM_TRAIN} x {NYSTROM_CORE}, Kcc over '
+          f'{NYSTROM_CORE}): none built during the fit')
+    say(f'  [{card}] theta {theta0.tolist()} -> {model.kernel.theta.tolist()}')
+    say(f'  [{card}] fit wall {fit_s:.4f} s, {n_evals} evaluations, '
+        f'{fit_s / n_evals * 1e3:.3f} ms an evaluation; launches an '
+        'evaluation: ' + ', '.join(f'{k} {v / n_evals:.3f}'
+                                   for k, v in launches['fit'].items()))
+    lml_fit = model.log_marginal_likelihood()
+    check(lml_fit <= lml0, f'negative LML {lml_fit:.6f} at the fit <= '
+          f'{lml0:.6f} at theta0')
+
+    read = launch_counts()
+    t0 = time.perf_counter()
+    mean, std = model.predict(held, return_std=True)
+    predict_s = time.perf_counter() - t0
+    launches['predict'] = read()
+    y_held = y[NYSTROM_TRAIN:]
+    check(mean.shape == std.shape == (len(held),)
+          and bool(np.isfinite(mean).all()) and bool((std >= 0).all()),
+          f'[{card}] predict {len(held)} held-out graphs with std in '
+          f'{predict_s:.4f} s: finite, std >= 0; mean |y - mean| '
+          f'{float(np.abs(y_held - mean).mean()):.3f} (std of y '
+          f'{float(y.std()):.3f})')
+    t0 = time.perf_counter()
+    loo = model.predict_loocv(train, y_train)
+    loocv_s = time.perf_counter() - t0
+    check(loo.shape == (NYSTROM_TRAIN,) and bool(np.isfinite(loo).all()),
+          f'[{card}] predict_loocv over the {NYSTROM_TRAIN} training graphs '
+          f'in {loocv_s:.4f} s: finite; mean |y - loo| '
+          f'{float(np.abs(y_train - loo).mean()):.3f}')
+
+    theta_fit = model.kernel.theta.copy()
+    wall, device = profile_build(lambda: model.log_marginal_likelihood(
+        theta_fit, eval_gradient=True, clone_kernel=False),
+        'Nystrom evaluation')
+
+    sub = train[:NYSTROM_FULL]
+    exact = GaussianProcessRegressor(models_kernel(), alpha=NYSTROM_ALPHA,
+                                     normalize_y=True, device='cuda').fit(
+        sub, y_train[:NYSTROM_FULL])
+    full = LowRankApproximateGPR(models_kernel(), alpha=NYSTROM_ALPHA,
+                                 normalize_y=True, device='cuda').fit(
+        sub, sub, y_train[:NYSTROM_FULL])
+    err = float(np.abs(full.predict(held) - exact.predict(held)).max())
+    tol = 1e-3 * float(y_train[:NYSTROM_FULL].std())
+    check(err <= tol, f'core = training set ({NYSTROM_FULL} graphs): the '
+          f'Nystrom predictions of the held-out graphs within 1e-3 std(y) = '
+          f'{tol:.3e} of the exact GPR\'s: {err:.3e}')
+    models_fixture_case(np.load(MODELS_FIXTURE))
+    return launches
+
+
+def vario_graphs():
+    """The variable-length-feature graphs of ``tests/test_mlgk.py``
+    ('vario'), as the port's graphs."""
+    import networkx as nx
+    from graphdot_tpu_torch.graph import Graph
+
+    def nx_graph(nodes, edges):
+        g = nx.Graph()
+        for n, attrs in nodes:
+            g.add_node(n, **attrs)
+        for u, v, attrs in edges:
+            g.add_edge(u, v, **attrs)
+        return g
+    graphs = [
+        nx_graph([('O1', dict(rings=(5, 6))), ('H1', dict(rings=(3,))),
+                  ('H2', dict(rings=(2, 3, 4)))],
+                 [('O1', 'H1', dict(w=1.0, spectrum=(3, 4))),
+                  ('O1', 'H2', dict(w=2.0, spectrum=(3, 5)))]),
+        nx_graph([('H1', dict(rings=(3, 4))), ('H2', dict(rings=(3,)))],
+                 [('H1', 'H2', dict(w=3.0, spectrum=(2, 4)))]),
+    ]
+    return Graph.unify_datatype([Graph.from_networkx(g, weight='w')
+                                 for g in graphs])
+
+
+def fields_phase():
+    """Phase 21: outliers, the Gaussian field and the new microkernels on
+    the card. ``GPROutlierDetector`` over ``bench.py``'s 128 molecules with
+    4 corrupted targets; ``GaussianFieldRegressor`` over
+    ``RBFOverDistance(MaxiMin)`` on ``bench_maximin.py``'s 128 molecules,
+    half of the labels hidden, fitted with ``loocv2``; the 128-molecule
+    normalized Gram with ``RationalQuadratic`` on length (value and
+    gradient); ``Convolution`` and ``DotProduct`` over the 'vario' graphs.
+    Each against ``backend='edge'``. Returns the kernels' launches by
+    step."""
+    import torch
+    from graphdot_tpu_torch.kernel import (
+        MarginalizedGraphKernel, Normalization)
+    from graphdot_tpu_torch.kernel.marginalized._kron import (
+        kron_eligible, kron_pcg)
+    from graphdot_tpu_torch.metric import MaxiMin
+    from graphdot_tpu_torch.microkernel import (
+        Convolution, DotProduct, KroneckerDelta, RationalQuadratic,
+        SquareExponential, TensorProduct)
+    from graphdot_tpu_torch.model.gaussian_field import (
+        GaussianFieldRegressor, RBFOverDistance)
+    from graphdot_tpu_torch.model.gaussian_process import GPROutlierDetector
+    from graphdot_tpu_torch.testing import random_molecule_set
+
+    card = nvidia_smi()
+    launches = {}
+
+    # the outlier detector
+    # targets the model describes: a draw of the GP prior at theta0 (10
+    # times L z, L the Cholesky factor of K + 1e-6 I), so that the
+    # corrupted ones are the only misfits; a normalized kernel cannot fit
+    # -10 |nodes|, and its residuals there are as large as the shift
+    seed, count, atoms = OUTLIER_SET
+    graphs = random_molecule_set(seed, count, atoms)
+    K = models_kernel()(graphs).astype(np.float64)
+    rng = np.random.default_rng(OUTLIER_SEED)
+    y = 10.0 * np.linalg.cholesky(K + 1e-6 * np.eye(count)) @ \
+        rng.standard_normal(count)
+    corrupted = np.sort(rng.choice(count, OUTLIERS, replace=False))
+    y[corrupted] += rng.choice([-OUTLIER_SHIFT, OUTLIER_SHIFT], OUTLIERS)
+    draws = np.random.default_rng(OUTLIER_SEED + 1)
+
+    def make_detector(backend='auto'):
+        return GPROutlierDetector(models_kernel(backend), normalize_y=True,
+                                  device='cuda')
+    detector = make_detector()
+    detector.X, detector.y = graphs, y
+    start = np.concatenate([detector.kernel.theta,
+                            np.log(draws.lognormal(-1.0, 1.0, count))])
+    value, grad = detector.log_marginal_likelihood(start, eval_gradient=True)
+    edge = make_detector('edge')
+    edge.X, edge.y = graphs, y
+    value_e, grad_e = edge.log_marginal_likelihood(start, eval_gradient=True)
+    gtol = 1e-3 * float(np.abs(grad_e).max()) + 1e-5
+    check(abs(value - value_e) <= 1e-4 * abs(value_e)
+          and float(np.abs(grad - grad_e).max()) <= gtol,
+          f'outlier detector over {count} molecules: the negative LML at the '
+          f'start {value:.6f} vs edge {value_e:.6f} (rtol 1e-4), max |grad - '
+          f'grad_edge| {float(np.abs(grad - grad_e).max()):.3e} <= {gtol:.3e}')
+    draws = np.random.default_rng(OUTLIER_SEED + 1)
+    read = launch_counts()
+    t0 = time.perf_counter()
+    detector.fit(graphs, y, w=OUTLIER_W,
+                 udist=lambda k: draws.lognormal(-1.0, 1.0, k))
+    fit_s = time.perf_counter() - t0
+    launches['outlier fit'] = read()
+    top = np.sort(np.argsort(detector.y_uncertainty)[-OUTLIERS:])
+    sigma = detector.y_uncertainty
+    check(np.array_equal(top, corrupted) and launches['outlier fit'][
+        'pcg_packed'] > 0 and launches['outlier fit']['pcg_stream'] == 0,
+          f'[{card}] the fit ({fit_s:.3f} s) gave the {OUTLIERS} corrupted '
+          f'targets {corrupted.tolist()} the {OUTLIERS} largest sigma '
+          f'({np.sort(sigma[corrupted]).round(3).tolist()}; the largest of '
+          f'the rest {float(np.delete(sigma, corrupted).max()):.3f}); '
+          f'launches {launches["outlier fit"]}')
+
+    # the Gaussian field over MaxiMin
+    seed, count, atoms = MAXIMIN_SET
+    graphs = np.asarray(random_molecule_set(seed, count, atoms), dtype=object)
+    labels = gp_targets(graphs)
+    hidden = np.random.default_rng(GFR_SEED).choice(count, count // 2,
+                                                    replace=False)
+    y = labels.copy()
+    y[hidden] = np.nan
+
+    def make_field(backend='auto', optimizer=None):
+        metric = MaxiMin(TensorProduct(element=KroneckerDelta(0.2)),
+                         TensorProduct(length=SquareExponential(0.3)),
+                         q=0.05, backend=backend, device='cuda')
+        return GaussianFieldRegressor(
+            RBFOverDistance(metric, sigma=GFR_SIGMA), optimizer=optimizer,
+            device='cuda')
+    field = make_field(optimizer=True)
+    loss, grad = field.loocv_error_2(graphs, y, eval_gradient=True)
+    loss_e, grad_e = make_field('edge').loocv_error_2(graphs, y,
+                                                      eval_gradient=True)
+    gtol = 1e-3 * float(np.abs(grad_e).max()) + 1e-4
+    check(abs(loss - loss_e) <= 1e-4 * abs(loss_e)
+          and float(np.abs(grad - grad_e).max()) <= gtol,
+          f'Gaussian field over MaxiMin ({count} molecules, {len(hidden)} '
+          f'labels hidden): loocv2 at the start {loss:.6f} vs edge '
+          f'{loss_e:.6f} (rtol 1e-4), max |grad - grad_edge| '
+          f'{float(np.abs(grad - grad_e).max()):.3e} <= {gtol:.3e}')
+    read = launch_counts()
+    t0 = time.perf_counter()
+    field.fit(graphs, y, loss='loocv2')
+    fit_s = time.perf_counter() - t0
+    launches['field fit'] = read()
+    t0 = time.perf_counter()
+    z = field.predict(graphs, y)
+    predict_s = time.perf_counter() - t0
+    check(bool(np.isfinite(z).all()) and launches['field fit'][
+        'pcg_packed'] > 0 and launches['field fit']['pcg_stream'] == 0,
+          f'[{card}] the field\'s fit {fit_s:.3f} s (theta '
+          f'{field.weight.theta.round(4).tolist()}), predict {predict_s:.3f}'
+          f' s: finite; mean |y - z| over the hidden labels '
+          f'{float(np.abs(z[hidden] - labels[hidden]).mean()):.3f} (std of y '
+          f'{float(labels.std()):.3f}); fit launches {launches["field fit"]}')
+
+    # RationalQuadratic on length: the normalized Gram and its gradient
+    seed, count, atoms = OUTLIER_SET
+    graphs = random_molecule_set(seed, count, atoms)
+
+    def rq_kernel(backend='auto'):
+        return Normalization(MarginalizedGraphKernel(
+            TensorProduct(element=KroneckerDelta(0.2)),
+            TensorProduct(length=RationalQuadratic(0.3, 1.0)), q=0.05,
+            backend=backend, device='cuda'))
+    read = launch_counts()
+    K, dK = rq_kernel()(graphs, eval_gradient=True)
+    launches['RationalQuadratic gradient Gram'] = read()
+    K_e, dK_e = rq_kernel('edge')(graphs, eval_gradient=True)
+    err = float(np.abs(K - K_e).max())
+    derr = float(np.abs(dK - dK_e).max())
+    dtol = 1e-3 * float(np.abs(dK_e).max()) + 1e-5
+    check(np.isfinite(dK).all() and err <= 1e-6 and derr <= dtol
+          and launches['RationalQuadratic gradient Gram']['pcg_packed'] > 0,
+          f'RationalQuadratic on length, {count} molecules: max |K - K_edge| '
+          f'{err:.3e} <= 1e-6, max |dK - dK_edge| {derr:.3e} <= {dtol:.3e}; '
+          f'launches {launches["RationalQuadratic gradient Gram"]}')
+
+    # Convolution and DotProduct over variable-length features
+    ref = np.load(MODELS_FIXTURE)
+    G = vario_graphs()
+    q = float(ref['vario_q'])
+    node = TensorProduct(rings=Convolution(KroneckerDelta(0.3)))
+    for name, edge_kernel, oracle in (
+            ('Convolution', Convolution(SquareExponential(1.0)),
+             ref['vario_oracle']),
+            ('DotProduct', DotProduct().normalized, None)):
+        def vario_kernel(backend='auto'):
+            return MarginalizedGraphKernel(
+                node, TensorProduct(spectrum=edge_kernel), q=q,
+                backend=backend, device='cuda')
+        kernel = vario_kernel()
+        _, bd, _ = kernel._prepare_batch(G)
+        ops = kernel._operands(bd, bd, torch.tensor([0], device='cuda'),
+                               torch.tensor([1], device='cuda'))
+        read = launch_counts()
+        kron_before = kron_pcg.launches
+        R = kernel(G)
+        launches[f'{name} Gram'] = read()
+        R_e = vario_kernel('edge')(G)
+        scale = float(np.abs(R_e).max())
+        err = float(np.abs(R - R_e).max())
+        ok = err <= 1e-6 * scale
+        text = (f'{name} on the card over the vario graphs: max |R - R_edge| '
+                f'{err:.3e} <= 1e-6 max |R| = {1e-6 * scale:.3e}')
+        if oracle is not None:
+            oerr = float(np.abs(R - oracle).max())
+            ok = ok and oerr <= 1e-6 * float(np.abs(oracle).max())
+            text += (f', max |R - R_oracle| (JAX fixture) {oerr:.3e} <= '
+                     f'{1e-6 * float(np.abs(oracle).max()):.3e}')
+        check(ok and not kron_eligible(ops)
+              and kron_pcg.launches == kron_before
+              and launches[f'{name} Gram']['pcg_resident'] > 0,
+              text + f'; not kron-eligible, kron_pcg never, launches '
+              f'{launches[f"{name} Gram"]}')
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2620,6 +3152,13 @@ def main():
     say('== 19. graphs from atoms: the QM7 surrogate through from_ase')
     atoms_launches = atoms_phase()
 
+    say('== 20. the Tang & de Jong 2019 workflow with Nystrom: 1024 '
+        'molecules, core 128')
+    nystrom_launches = nystrom_phase()
+
+    say('== 21. outliers, the Gaussian field and the new microkernels')
+    field_launches = fields_phase()
+
     def by_path(name):
         """A kernel's launches on each path, counted from 0 before it."""
         return {'value Gram (4)': launches if name == 'pcg_resident' else 0,
@@ -2638,7 +3177,11 @@ def main():
                 'maximin device_distance_fn (18)':
                 maximin_launches['device_distance_fn'][name],
                 'maximin gradient (18)': maximin_launches['gradient'][name],
-                'QM7 surrogate Gram (19)': atoms_launches[name]}
+                'QM7 surrogate Gram (19)': atoms_launches[name],
+                **{f'Nystrom {step} (20)': counts[name]
+                   for step, counts in nystrom_launches.items()},
+                **{f'{step} (21)': counts[name]
+                   for step, counts in field_launches.items()}}
 
     def headline(row, rows):
         """A kernel's numbers on the summary line: those of its timed

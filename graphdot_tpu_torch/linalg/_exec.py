@@ -12,6 +12,8 @@ run float64 (its ``_f64_device``).
 import numpy as np
 import torch
 
+from ..kernel.marginalized._backend import resolve_device
+
 
 def _to_numpy(out):
     if isinstance(out, torch.Tensor):
@@ -21,13 +23,20 @@ def _to_numpy(out):
     return out
 
 
+def as_tensor(a, device):
+    """An array or tensor as a float64 tensor on ``device`` (resolved: a
+    CUDA device without a card raises)."""
+    device = resolve_device(device)
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float64)
+    return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
+
+
 def run(fn, *arrays, device='cuda'):
     """Run a tensor function on ``device`` with every array argument as a
     float64 tensor; returns its outputs (a tensor or a tuple of them) as
-    numpy arrays."""
-    tensors = [torch.as_tensor(np.asarray(a, dtype=np.float64),
-                               device=device) for a in arrays]
-    return _to_numpy(fn(*tensors))
+    numpy arrays. A CUDA device without a card raises."""
+    return _to_numpy(fn(*(as_tensor(a, device) for a in arrays)))
 
 
 def _cho_apply(L, B):
@@ -47,9 +56,16 @@ def _cholesky(A):
     return torch.where(info == 0, L, torch.nan).tril()
 
 
+def _eigh(H):
+    """The eigendecomposition of the symmetric part of H, as
+    ``jnp.linalg.eigh`` takes it (``torch.linalg.eigh`` reads one
+    triangle)."""
+    return torch.linalg.eigh(0.5 * (H + H.T))
+
+
 def eigh(H, device='cuda'):
     """Ascending eigendecomposition of a symmetric matrix (numpy out)."""
-    return run(torch.linalg.eigh, H, device=device)
+    return run(_eigh, H, device=device)
 
 
 def cholesky(A, device='cuda'):

@@ -7,8 +7,11 @@ host-side scalar callable with analytic jacobians and a vectorized
 from ._base import Constant, MicroKernel, Normalize
 from .additive import Additive
 from .composite import Composite
+from .convolution import Convolution
+from .dotproduct import DotProduct
 from .kronecker_delta import KroneckerDelta
 from .product import Product
+from .rational_quadratic import RationalQuadratic
 from .square_exponential import SquareExponential
 from .tensor_product import TensorProduct
 
@@ -19,7 +22,10 @@ __all__ = [
     'Product',
     'KroneckerDelta',
     'SquareExponential',
+    'RationalQuadratic',
     'Composite',
     'TensorProduct',
     'Additive',
+    'Convolution',
+    'DotProduct',
 ]

@@ -1,5 +1,13 @@
-"""Models on graph kernels; counterpart of ``graphdot_tpu/model``. Only the
-exact Gaussian-process regressor is ported so far."""
-from .gaussian_process import GaussianProcessRegressor
+"""Models on graph kernels; counterpart of ``graphdot_tpu/model``:
+Gaussian processes, Gaussian fields and active learning. Tree search is
+still to port."""
+from .gaussian_process import (
+    GaussianProcessRegressor,
+    GPROutlierDetector,
+    LowRankApproximateGPR,
+)
 
-__all__ = ['GaussianProcessRegressor']
+__all__ = [
+    'GaussianProcessRegressor', 'LowRankApproximateGPR',
+    'GPROutlierDetector'
+]

@@ -235,6 +235,29 @@ def test_maximin_matches_jax(backend, buckets):
     assert (hot[0] < sizes[:, None]).all() and (hot[1] < sizes[None, :]).all()
 
 
+@pytest.mark.parametrize('backend', ['cuda', 'edge'])
+def test_maximin_lmin1_matches_jax(backend):
+    """``lmin=1`` (walks of one step or more, the metric that the Gaussian
+    field's weights take from ``bench_maximin.py``'s kernel) against JAX
+    ``edge``: D by the D limit, dD off the diagonal by the dD limit at the
+    pairs whose hotspots agree."""
+    seed, _, atoms = FIXTURE_SET
+    G = port_testing.random_molecule_set(seed, 8, atoms)
+    JG = jax_testing.random_molecule_set(seed, 8, atoms)
+    D, hot, dD = bench_metric(backend=backend)(
+        G, return_hotspot=True, eval_gradient=True, lmin=1)
+    JD, jhot, JdD = bench_metric('jax')(JG, return_hotspot=True,
+                                        eval_gradient=True, lmin=1)
+    off = ~np.eye(len(G), dtype=bool)
+    assert (np.abs(D - JD) <= d_limit(D, JD))[off].all()
+    agree = (hot[0] == jhot[0]) & (hot[1] == jhot[1]) & off
+    assert agree.sum() >= 0.9 * off.sum()
+    limit = 1e-3 * np.abs(JdD).max() + 1e-4
+    assert np.abs(dD - JdD)[agree].max() <= limit
+    D0 = bench_metric(backend=backend)(G)
+    assert np.abs(D - D0)[off].max() > 1e-3, 'lmin=1 changes D'
+
+
 def test_maximin_cross_matches_symmetric():
     """A rectangular call (X, Y) gives the symmetric call's block: D,
     hotspots and dD."""

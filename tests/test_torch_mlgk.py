@@ -285,6 +285,103 @@ def test_matches_oracle(case, backend):
 
 
 # ---------------------------------------------------------------------------
+# variable-length and vector features (the 'vario' graphs of test_mlgk.py)
+# ---------------------------------------------------------------------------
+
+
+def vario_kernels(m, case):
+    """(node kernel, edge kernel) of a variable-length-feature case, from
+    microkernel module ``m``: 'conv' is ``tests/test_mlgk.py``'s,
+    'rq' puts a rational quadratic inside the edge convolution, 'dot'
+    takes the normalized inner product of the (length-2) edge spectra."""
+    knode = m.TensorProduct(rings=m.Convolution(m.KroneckerDelta(0.3)))
+    kedge = {
+        'conv': lambda: m.Convolution(m.SquareExponential(1.0)),
+        'rq': lambda: m.Convolution(m.RationalQuadratic(0.9, 1.5)),
+        'dot': lambda: m.DotProduct().normalized,
+    }[case]()
+    return knode, m.TensorProduct(spectrum=kedge)
+
+
+def vario_graphs(package):
+    from test_mlgk import _g_vario
+    return package.unify_datatype(
+        [package.from_networkx(g, weight='w') for g in _g_vario])
+
+
+VARIO_CASES = ['conv', 'rq', 'dot']
+
+
+@pytest.mark.parametrize('backend', ['cuda', 'edge', 'dense'])
+@pytest.mark.parametrize('case', VARIO_CASES)
+def test_vario_matches_oracle(case, backend):
+    """Every entry of the Gram within 1e-5 relative of the dense oracle
+    (``tests/oracle.py``, float64) at each q of ``tests/test_mlgk.py``."""
+    from graphdot_tpu_torch.graph import Graph as PortGraph
+    G = vario_graphs(PortGraph)
+    knode, kedge = vario_kernels(tmk, case)
+    for q in [0.01, 0.05, 0.1, 0.5]:
+        R = MarginalizedGraphKernel(knode, kedge, q=q, backend=backend,
+                                    device='cpu')(G)
+        want = np.array([[mlgk(a, b, knode, kedge, q) for b in G]
+                         for a in G])
+        np.testing.assert_allclose(R, want, rtol=1e-5, atol=0,
+                                   err_msg=f'q={q}')
+
+
+@pytest.mark.parametrize('backend', PORT_BACKENDS)
+@pytest.mark.parametrize('case', VARIO_CASES)
+def test_vario_matches_jax(case, backend):
+    """K and dK against the JAX kernel (``edge``) on the same graphs: K
+    rtol 1e-5, dK 1e-4 max |dK| (both float32 CG)."""
+    from graphdot_tpu_torch.graph import Graph as PortGraph
+    jk = JaxMGK(*vario_kernels(jmk, case), q=0.05, backend='edge')
+    tk = MarginalizedGraphKernel(*vario_kernels(tmk, case), q=0.05,
+                                 backend=backend, device='cpu')
+    K, dK = tk(vario_graphs(PortGraph), eval_gradient=True)
+    JK, JdK = jk(vario_graphs(Graph), eval_gradient=True)
+    np.testing.assert_allclose(K, JK, rtol=1e-5, atol=0)
+    assert dK.shape == JdK.shape == (2, 2, len(tk.theta))
+    np.testing.assert_allclose(dK, JdK, rtol=0,
+                               atol=1e-4 * np.abs(JdK).max())
+
+
+def test_vario_is_not_kron_eligible():
+    """A variable-length edge feature keeps the pairs off the kron route:
+    the operands are not eligible and ``backend='kron'`` refuses them."""
+    from graphdot_tpu_torch.graph import Graph as PortGraph
+    from graphdot_tpu_torch.kernel.marginalized._kron import kron_eligible
+    G = vario_graphs(PortGraph)
+    tk = MarginalizedGraphKernel(*vario_kernels(tmk, 'conv'), q=0.05,
+                                 device='cpu')
+    _, bd, _ = tk._prepare_batch(G)
+    ops = tk._operands(bd, bd, torch.tensor([0]), torch.tensor([1]))
+    assert isinstance(ops['edge_elist_feats_1']['spectrum'], tuple)
+    assert not kron_eligible(ops)
+    with pytest.raises(ValueError, match='plain scalar edge features'):
+        MarginalizedGraphKernel(*vario_kernels(tmk, 'conv'), q=0.05,
+                                backend='kron', device='cpu')(G)
+
+
+@pytest.mark.parametrize('case', VARIO_CASES)
+def test_hyperparameters_from_numpy_vario(case):
+    """``hyperparameters_from_numpy`` carries the three kernels'
+    hyperparameters across from a JAX kernel."""
+    from graphdot_tpu_torch.graph import Graph as PortGraph
+    jk = JaxMGK(*vario_kernels(jmk, case), q=0.05, backend='edge')
+    jk.theta = jk.theta - 0.1
+    tk = MarginalizedGraphKernel(*vario_kernels(tmk, case), q=0.05,
+                                 device='cpu')
+    hyperparameters_from_numpy(tk, jk.flat_hyperparameters,
+                               bounds=jk.hyperparameter_bounds)
+    np.testing.assert_allclose(tk.flat_hyperparameters,
+                               jk.flat_hyperparameters, rtol=1e-12)
+    np.testing.assert_allclose(tk.theta, jk.theta, rtol=1e-12)
+    np.testing.assert_allclose(tk(vario_graphs(PortGraph)),
+                               jk(vario_graphs(Graph)), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # contracts of the port
 # ---------------------------------------------------------------------------
 

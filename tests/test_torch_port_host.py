@@ -90,6 +90,29 @@ def test_port_imports_nothing_of_the_jax_package():
         '            device="cpu")\n'
         'assert m(G).shape == (3, 3)\n'
         'assert M3(q=0.05, device="cpu")(mols[0], mols[1]) > 0\n'
+        'from graphdot_tpu_torch.model.gaussian_process import (\n'
+        '    LowRankApproximateGPR, GPROutlierDetector)\n'
+        'from graphdot_tpu_torch.model.active_learning import (\n'
+        '    VarianceMinimizer, DeterminantMaximizer, HierarchicalDrafter)\n'
+        'from graphdot_tpu_torch.model.gaussian_field import (\n'
+        '    GaussianFieldRegressor, Weight, RBFOverDistance,\n'
+        '    RBFOverFixedDistance)\n'
+        'from graphdot_tpu_torch.microkernel import (\n'
+        '    Convolution, DotProduct, RationalQuadratic)\n'
+        'from graphdot_tpu_torch.linalg import (\n'
+        '    block, cg, cholesky, low_rank, spectral)\n'
+        'from graphdot_tpu_torch.kernel import Normalization\n'
+        'nk = Normalization(k)\n'
+        'core = HierarchicalDrafter(VarianceMinimizer(nk))(G, 2,\n'
+        '                                                  random_state=0)\n'
+        'nys = LowRankApproximateGPR(nk, alpha=1e-4, device="cpu")\n'
+        'nys.fit([G[i] for i in core], G, [1.0, 2.0, 3.0])\n'
+        'assert nys.predict(G).shape == (3,)\n'
+        'w = RBFOverDistance(m, sigma=0.5)\n'
+        'z = GaussianFieldRegressor(w, device="cpu").predict(\n'
+        '    G, [1.0, float("nan"), 3.0])\n'
+        'assert z.shape == (3,)\n'
+        'assert cholesky.CholSolver([[4.0]], device="cpu") @ [8.0] == 2.0\n'
         'bad = sorted(m for m in sys.modules\n'
         '             if m == "graphdot_tpu" or m.startswith("graphdot_tpu.")\n'
         '             or m == "jax" or m.startswith(("jax.", "jaxlib")))\n'
