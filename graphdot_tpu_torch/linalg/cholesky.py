@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from ..kernel.marginalized._backend import resolve_device
-from ._exec import _cholesky, _to_numpy, as_tensor
+from ._exec import _cho_apply, _cholesky, _to_numpy, as_tensor
 
 
 class CholSolver:
@@ -27,10 +27,7 @@ class CholSolver:
         self._factor = factor
 
     def __matmul__(self, b):
-        b = as_tensor(b, self.device)
-        x = torch.cholesky_solve(b if b.dim() > 1 else b[:, None],
-                                 self._factor)
-        return _to_numpy(x.reshape(b.shape))
+        return _to_numpy(_cho_apply(self._factor, as_tensor(b, self.device)))
 
     def todense(self):
         return self @ np.eye(len(self._factor))

@@ -1,6 +1,7 @@
 """Models on graph kernels; counterpart of ``graphdot_tpu/model``:
-Gaussian processes, Gaussian fields and active learning. Tree search is
-still to port."""
+Gaussian processes (:mod:`.gaussian_process`), Gaussian fields
+(:mod:`.gaussian_field`) and active learning (:mod:`.active_learning`).
+The JAX package's tree search has no counterpart here yet."""
 from .gaussian_process import (
     GaussianProcessRegressor,
     GPROutlierDetector,
