@@ -201,7 +201,10 @@ and checks every part of them:
     transitions, and the resumed run's mean accept came out at 0.62-0.67
     on an H100) and a resumed run of 40 draws: all finite, every chain's
     standard deviation above 1e-6 in every dimension, the mean
-    ``accept_prob`` within 0.15 of 0.8;
+    ``accept_prob`` within 0.15 of 0.8; ``value_and_grad`` at the
+    fixture's 8 thetas the same bits twice before the run and once after
+    it (the tangent right-hand sides sum in a fixed order on the card:
+    ``ops.pcg.offdiag_operator``);
     split-R-hat, bulk ESS, the divergent share, draws/s, min-bulk-ESS/s,
     time to first draw, leapfrog iterations/s with the live chains and
     launches an iteration, gradient Grams of 1 and 8 thetas, and profiled
@@ -279,9 +282,23 @@ and checks every part of them:
     ``tests/test_mlgk.py`` with ``Convolution`` (and ``DotProduct().
     normalized`` on the edge spectra) on the card, within 1e-6 max |R| of
     ``edge`` and of the dense oracle's Gram stored in the JAX fixture, not
-    kron-eligible and no ``kron_pcg`` solve.
+    kron-eligible and no ``kron_pcg`` solve;
+22. the multi-GPU layer (``graphdot_tpu_torch.parallel`` and the samplers'
+    ``mesh``) in a process group over NCCL of world size 1, the card's one
+    rank, made in the phase and destroyed at its end: ``sharded_gram_fn``
+    over the 128 molecules within 1e-6 of ``GramFactory.gram`` and of the
+    JAX fixture, ``pcg_resident`` launched once a chunk of the rank's
+    share; the shares of 2 and 4 ranks, computed in the process, cover
+    every job once and assemble the Gram within 1e-6; ``sharded_gp_solve``
+    of that Gram plus 1e-2 I in float64 within rtol 1e-4, atol 1e-5 of a
+    float64 Cholesky solve; ``sample(mesh=...)`` of 8 chains for 5 draws
+    from phase 17's adapted step size and mass, and a 3-stage
+    ``smc_sample(mesh=...)`` of 8 particles, each bitwise equal to the
+    unsharded call from the same seed; the phase within 90 s.
 
-Prints ``KRON_MIN_N`` beside the phase 16 walls it follows (a route is
+Prints each phase's wall as the next begins, and all of them with the
+script's wall so far as one JSON line (``phase_walls_s``, ``script_s``);
+``KRON_MIN_N`` beside the phase 16 walls it follows (a route is
 faster on a set when every timed build of it beat every build of the
 other), one JSON line;
 the kron route table, one JSON line (a row a class); the kernel summary as
@@ -307,6 +324,7 @@ from pathlib import Path
 
 import numpy as np
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_gram_ref.npz'
 GRAD_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_grad_ref.npz'
@@ -392,7 +410,24 @@ FP32_OPS_PER_S = 67e12
 CG_OPS_PER_ELEMENT = 15
 
 
+#: the phase under way (its number, from its '== n.' header) and when it
+#: began; each phase's wall is printed when the next one begins
+_PHASE = {'name': None, 'start': time.perf_counter(), 'walls': {}}
+
+
+def _end_phase():
+    if _PHASE['name'] is not None:
+        wall = time.perf_counter() - _PHASE['start']
+        _PHASE['walls'][_PHASE['name']] = round(wall, 3)
+        print(f'  phase {_PHASE["name"]} took {wall:.3f} s', flush=True)
+
+
 def say(*args):
+    text = ' '.join(str(a) for a in args)
+    if text.startswith('== '):
+        _end_phase()
+        _PHASE.update(name=text[3:].split('.')[0],
+                      start=time.perf_counter())
     print(*args, flush=True)
 
 
@@ -1225,8 +1260,11 @@ def nuts_phase(warmup=NUTS_WARMUP, draws=NUTS_DRAWS):
     transition draw for draw, q >= 1, a warmup of ``warmup`` transitions
     and a resumed run of ``draws`` draws (timed as a user runs it), the
     Gram of one theta as [n] and as [1, n], and profiled Grams and a
-    profiled iteration. Returns the kernels' launches
-    during the resumed run and their count a leapfrog iteration."""
+    profiled iteration; ``value_and_grad`` at the fixture's 8 thetas gives
+    the same bits twice before the sampling run and once after it. Returns
+    the kernels' launches during the resumed run, their count a leapfrog
+    iteration, and the resumed run's start (``lp``, ``init``,
+    ``step_size``, ``inv_mass``) for phase 22."""
     import torch
     from graphdot_tpu_torch.inference import (
         GPRLogProb, HMCState, ess, nuts_step, resume_state, sample,
@@ -1404,6 +1442,15 @@ def nuts_phase(warmup=NUTS_WARMUP, draws=NUTS_DRAWS):
           f'JAX\'s; the call returned in {t_ood:.4f} s at <= {cap} CG steps '
           'a solve')
 
+    # the log density repeats bit for bit: no call leaves state behind
+    # that changes the next, and the card sums in a fixed order
+    first_vg = vg(thetas)
+    again = vg(thetas)
+    check(torch.equal(first_vg[0], again[0])
+          and torch.equal(first_vg[1], again[1]),
+          f'value_and_grad at the fixture\'s {C} thetas, twice: the same '
+          'bits')
+
     # the sampling run, as bench_nuts.py: a warmup, then a resumed run.
     # The sampler gets the log density as a user passes it, in a wrapper
     # that only counts its calls (one a leapfrog iteration) and their rows
@@ -1453,6 +1500,11 @@ def nuts_phase(warmup=NUTS_WARMUP, draws=NUTS_DRAWS):
           >= iters and run_launches['pcg_packed'] >= iters,
           'every leapfrog iteration launched pcg_resident and pcg_packed, '
           'pcg_stream never')
+    after = vg(thetas)
+    check(torch.equal(first_vg[0], after[0])
+          and torch.equal(first_vg[1], after[1]),
+          f'value_and_grad at the {C} thetas after the sampling run: the '
+          'bits of the first call')
     say(f'  split-R-hat {np.round(rhat, 4).tolist()}, bulk ESS '
         f'{np.round(bulk, 2).tolist()}, divergent share '
         f'{float(out2["divergent"].float().mean()):.4f}')
@@ -1502,7 +1554,10 @@ def nuts_phase(warmup=NUTS_WARMUP, draws=NUTS_DRAWS):
     profile_build(lambda: lp.factory.gram(thetas[:1], eval_gradient=True),
                   'gradient Gram of theta [1, n]')
     profile_build(lambda: vg(thetas), f'NUTS iteration ({C} chains)')
-    return run_launches, {k: v / iters for k, v in run_launches.items()}
+    resume = {'lp': lp, 'init': init2, 'step_size': step_size,
+              'inv_mass': inv_mass}
+    return (run_launches, {k: v / iters for k, v in run_launches.items()},
+            resume)
 
 def d_limit(a, b):
     """The limit on a distance matrix of phases 18-19: 1e-4 where both
@@ -2354,6 +2409,165 @@ def fields_phase():
     return launches
 
 
+def parallel_phase(resume):
+    """Phase 22: the multi-GPU layer (``graphdot_tpu_torch.parallel``, the
+    samplers' ``mesh``) over NCCL at world size 1, the card's one rank, in
+    a process group made here and destroyed at the end. (a)
+    ``sharded_gram_fn`` over ``bench.py``'s 128 molecules within 1e-6 of
+    ``GramFactory.gram`` and of the JAX fixture, one ``pcg_resident`` launch
+    a chunk of the share; (b) the shares of 2 and 4 ranks, computed here,
+    cover every job once and assemble the Gram within 1e-6; (c)
+    ``sharded_gp_solve`` of that Gram plus 1e-2 I, in float64, within rtol
+    1e-4 and atol 1e-5 of a float64 Cholesky solve; (d) ``sample(mesh=...)``
+    of 8 chains for 5 draws, resumed at phase 17's step size and mass, and
+    a short ``smc_sample(mesh=...)``, each bitwise equal to the unsharded
+    call from the same seed. Returns the kernels' launches of the sharded
+    Gram and of the sharded chains."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from graphdot_tpu_torch.convert import hyperparameters_from_numpy
+    from graphdot_tpu_torch.inference import GramFactory, sample, smc_sample
+    from graphdot_tpu_torch.kernel import MarginalizedGraphKernel
+    from graphdot_tpu_torch.microkernel import (
+        KroneckerDelta, SquareExponential, TensorProduct)
+    from graphdot_tpu_torch.parallel import (
+        init_distributed, make_mesh, sharded_gp_solve, sharded_gram_fn)
+    from graphdot_tpu_torch.parallel.gram import (
+        assemble, share_groups, solve_share)
+    from graphdot_tpu_torch.testing import random_molecule_set
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    device = init_distributed(f'localhost:{port}', 1, 0, device='cuda')
+    out = {}
+    try:
+        check(dist.get_backend() == 'nccl' and dist.get_world_size() == 1
+              and device == torch.device('cuda', 0),
+              f'a process group over NCCL, world size 1, rank 0 on {device}')
+        pairs = make_mesh({'pairs': -1})
+        chains = make_mesh({'chains': -1})
+
+        # (a) the sharded Gram
+        ref = np.load(FIXTURE)
+        graphs = random_molecule_set(int(ref['seed']), int(ref['n_graphs']),
+                                     n_atoms_range=(9, 24))
+        kernel = hyperparameters_from_numpy(MarginalizedGraphKernel(
+            TensorProduct(element=KroneckerDelta(0.2)),
+            TensorProduct(length=SquareExponential(0.3)), q=0.05,
+            device='cuda'), ref['theta'])
+        factory = GramFactory(kernel, graphs)
+        theta = factory.theta0
+        plan = factory._plan
+        K_factory = factory.gram(theta)
+        gram = sharded_gram_fn(factory, pairs)
+        chunks = sum(1 for g in gram.shares for _ in plan.chunks(g))
+        read = launch_counts()
+        K = gram(theta)
+        got = read()
+        out['sharded Gram'] = got
+        err = float((K - K_factory).abs().max())
+        n_ref = int(ref['n_first'])
+        ref_err = float(np.abs(K[:n_ref, :n_ref].cpu().numpy()
+                               - ref['K']).max())
+        check(K.shape == K_factory.shape and err <= 1e-6
+              and ref_err <= 1e-6,
+              f'sharded_gram_fn over {len(graphs)} molecules: max |K - '
+              f'GramFactory.gram| {err:.3e}, max |K - K_jax| over the first '
+              f'{n_ref} {ref_err:.3e} (limit 1e-6)')
+        check(got['pcg_resident'] == chunks and got['pcg_packed'] == 0
+              and got['pcg_stream'] == 0,
+              f'pcg_resident launched {got["pcg_resident"]} times, once a '
+              f'chunk of the share ({chunks}), the others never')
+
+        # (b) the shares of 2 and 4 ranks, computed in this process
+        for size in (2, 4):
+            shares = [share_groups(factory, rank, size)
+                      for rank in range(size)]
+            covered = all(np.array_equal(np.concatenate(
+                [sh[g]['pos'] for sh in shares]), grp['pos'])
+                for g, grp in enumerate(plan.groups))
+            values = [solve_share(factory, theta, sh) for sh in shares]
+            K_size = assemble(factory, [torch.cat(v) for v in zip(*values)])
+            err = float((K_size - K).abs().max())
+            check(covered and err <= 1e-6,
+                  f'{size} ranks: the shares cover every job of the '
+                  f'{len(plan.groups)} groups once, and their Gram is '
+                  f'within {err:.3e} <= 1e-6')
+
+        # (c) the sharded CG
+        y = torch.as_tensor(np.random.default_rng(0).normal(
+            size=len(graphs)), device='cuda')
+        # K_ij / d_i / d_j leaves K symmetric only to a rounding; the
+        # Cholesky factor reads one triangle, the CG the whole matrix
+        K64 = 0.5 * (K.double() + K.double().T)
+        t0 = time.perf_counter()
+        x = sharded_gp_solve(pairs, K64, y, 1e-2, tol=1e-8)
+        torch.cuda.synchronize()
+        t_cg = time.perf_counter() - t0
+        A = K64.cpu() + 1e-2 * torch.eye(len(graphs), dtype=torch.float64)
+        exact = torch.cholesky_solve(y.cpu()[:, None], torch.linalg.cholesky(
+            A))[:, 0].numpy()
+        x = x.cpu().numpy()
+        check(np.allclose(x, exact, rtol=1e-4, atol=1e-5),
+              f'sharded_gp_solve of K + 1e-2 I in float64 in {t_cg:.4f} s: '
+              f'max |x - x_cholesky| {np.abs(x - exact).max():.3e} within '
+              'rtol 1e-4, atol 1e-5')
+
+        # (d) sharded chains and particles against the unsharded calls
+        lp = resume['lp']
+        kwargs = dict(n_chains=NUTS_CHAINS, n_samples=5,
+                      init=resume['init'], step_size=resume['step_size'],
+                      inv_mass=resume['inv_mass'],
+                      max_depth=NUTS_MAX_DEPTH, device='cuda')
+        read = launch_counts()
+        t0 = time.perf_counter()
+        sharded = sample(lp, torch.Generator().manual_seed(1), mesh=chains,
+                         chain_axis='chains', **kwargs)
+        got = read()
+        t_chains = time.perf_counter() - t0
+        out['sharded chains'] = got
+        plain = sample(lp, torch.Generator().manual_seed(1), **kwargs)
+        same = all(torch.equal(sharded[k], plain[k]) for k in (
+            'samples', 'logp', 'accept_prob', 'divergent'))
+        check(same and sharded['samples'].shape == (NUTS_CHAINS, 5,
+                                                     lp.n_dims),
+              f'sample(mesh=...) of {NUTS_CHAINS} chains for 5 draws '
+              f'({t_chains:.3f} s) equals the unsharded call bit for bit')
+        check(got['pcg_resident'] > 0 and got['pcg_packed'] > 0
+              and got['pcg_stream'] == 0,
+              f'the sharded chains launched pcg_resident '
+              f'{got["pcg_resident"]} and pcg_packed {got["pcg_packed"]} '
+              'times, pcg_stream never')
+        center = torch.as_tensor(lp.theta0, dtype=torch.float32,
+                                 device='cuda')
+
+        def log_prior(t):
+            return -0.5 * torch.sum((t - center) ** 2, dim=-1)
+
+        particles = center + 0.1 * torch.as_tensor(
+            np.random.default_rng(2).normal(size=(NUTS_CHAINS, lp.n_dims)),
+            dtype=torch.float32, device='cuda')
+        runs = [smc_sample(log_prior, lp, torch.Generator().manual_seed(2),
+                           n_particles=NUTS_CHAINS, init=particles,
+                           n_moves=2, max_stages=3, moves='rw', mesh=mesh,
+                           particle_axis='chains', device='cuda')
+                for mesh in (chains, None)]
+        check(torch.equal(runs[0]['samples'], runs[1]['samples'])
+              and runs[0]['log_evidence'] == runs[1]['log_evidence']
+              and runs[0]['beta_history'] == runs[1]['beta_history'],
+              f'smc_sample(mesh=...) of {NUTS_CHAINS} particles, '
+              f'{runs[0]["n_stages"]} stages, equals the unsharded call bit '
+              'for bit')
+    finally:
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t_phase
+    check(wall <= 90, f'phase 22 took {wall:.1f} s <= 90 s')
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3146,7 +3360,7 @@ def main():
 
     say('== 17. the NUTS path of bench_nuts.py: GPRLogProb over 32 '
         'molecules, 8 chains')
-    nuts_launches, nuts_per_iteration = nuts_phase()
+    nuts_launches, nuts_per_iteration, nuts_resume = nuts_phase()
 
     say('== 18. the MaxiMin path of bench_maximin.py: 128 molecules')
     maximin_launches = maximin_phase()
@@ -3160,6 +3374,10 @@ def main():
 
     say('== 21. outliers, the Gaussian field and the new microkernels')
     field_launches = fields_phase()
+
+    say('== 22. the multi-GPU layer over NCCL, world size 1: sharded Gram, '
+        'CG, chains and particles')
+    parallel_launches = parallel_phase(nuts_resume)
 
     def by_path(name):
         """A kernel's launches on each path, counted from 0 before it."""
@@ -3183,7 +3401,9 @@ def main():
                 **{f'Nystrom {step} (20)': counts[name]
                    for step, counts in nystrom_launches.items()},
                 **{f'{step} (21)': counts[name]
-                   for step, counts in field_launches.items()}}
+                   for step, counts in field_launches.items()},
+                **{f'{step} (22)': counts[name]
+                   for step, counts in parallel_launches.items()}}
 
     def headline(row, rows):
         """A kernel's numbers on the summary line: those of its timed
@@ -3195,6 +3415,9 @@ def main():
                           if k not in ('occupancy', 'live')} for r in rows]
         return out
 
+    _end_phase()
+    say(json.dumps({'phase_walls_s': _PHASE['walls'],
+                    'script_s': round(time.perf_counter() - T_START, 3)}))
     say(json.dumps(kron_min_n))
     say(json.dumps({'kron_route': kron_rows}))
     say(json.dumps({'kernels': [{

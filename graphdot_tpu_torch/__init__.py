@@ -9,8 +9,10 @@ that fit a block's shared memory, ``csrc/pcg_stream.cu`` for larger ones,
 and ``csrc/pcg_packed.cu`` for the hyperparameter gradient's tangent
 systems, the n_theta systems of a pair as one group. On top of the
 kernel sit the Gram factory, the Gaussian-process models, the samplers of
-``inference``, the graph metrics of ``metric`` and ``experimental``, and
-molecular graphs from atoms (``Graph.from_ase``, ``dataset``).
+``inference``, the graph metrics of ``metric`` and ``experimental``,
+molecular graphs from atoms (``Graph.from_ase``, ``dataset``), and the
+multi-process layer of ``parallel`` over ``torch.distributed`` (Grams,
+CG, chains and particles split over ranks, one device each).
 """
 from .graph import Graph
 

@@ -9,10 +9,12 @@ GP's log hyperparameters: each evaluation is one Gram of a
 :class:`GramFactory` for all the chains it is given, its solves in the
 card's kernels.
 
-Not ported: the JAX sampler's ``mesh``/``chain_axis`` and SMC's
-``particle_axis`` (chains sharded over devices, waiting for the port's
-multi-GPU work), ``sample``'s ``loop`` (one Python-driven loop here), and
-the nested-loop NUTS oracle ``_nuts_step_nested``.
+``sample``'s ``mesh``/``chain_axis`` and ``smc_sample``'s
+``mesh``/``particle_axis`` split the chains or particles over the ranks of a
+``graphdot_tpu_torch.parallel`` mesh, each rank advancing its block.
+
+Not ported: ``sample``'s ``loop`` (one Python-driven loop here), and the
+nested-loop NUTS oracle ``_nuts_step_nested``.
 """
 from .checkpoint import load_chains, resume_state, save_chains
 from .diagnostics import ess, split_rhat

@@ -37,7 +37,8 @@ Not ported:
   kernels gather over the edge lists and build no incidence one-hots;
 - ``reorder_by_iterations``: each pair stops at its own convergence in its
   own block;
-- ``_group_ops_solve``, the sharded path.
+- ``_group_ops_solve``: the sharded Gram of ``graphdot_tpu_torch.parallel``
+  solves each rank's share through the plan's own chunk solve.
 """
 import numpy as np
 import torch

@@ -5,10 +5,16 @@ The particles are the leading axis of every tensor, where the JAX module
 ran them under ``jax.vmap``. Adaptive tempering chooses each temperature
 increment so that the effective sample size stays at a target fraction,
 with systematic resampling and random-walk, HMC or NUTS mutation moves.
+Over a mesh (``mesh``, ``particle_axis``) each rank moves its block of the
+particles; the log likelihoods and the acceptances are gathered from all
+ranks before they are reduced, and the particles before resampling, so
+that a sharded run equals the unsharded one.
 """
 import math
 
 import torch
+
+from ..parallel.mesh import replicated, sharded_along
 
 from .hmc import _draw_on, hmc_draws, hmc_init, hmc_step
 from .nuts import nuts_draws, nuts_step
@@ -52,7 +58,7 @@ def _next_beta(log_like, beta, target_frac, n):
 def smc_sample(log_prior, log_like, generator, n_particles=256, init=None,
                n_moves=3, step_size=0.2, target_frac=0.5, max_stages=50,
                moves='rw', use_hmc=False, n_leapfrog=8, max_depth=6,
-               device='cuda'):
+               mesh=None, particle_axis='chains', device='cuda'):
     """SMC sampling of p(t) ∝ exp(log_prior(t) + log_like(t)).
 
     Parameters
@@ -66,10 +72,13 @@ def smc_sample(log_prior, log_like, generator, n_particles=256, init=None,
         better for high-dimensional hyperparameter posteriors.
     use_hmc: deprecated alias for ``moves='hmc'``.
     max_depth: NUTS tree-depth bound for ``moves='nuts'``.
+    mesh: optional :class:`~graphdot_tpu_torch.parallel.Mesh`. The
+        particles split over the ranks along ``particle_axis`` in equal
+        blocks, and each rank moves its block: every rank makes all the
+        particles' draws from ``generator`` and takes its block's; the log
+        likelihoods, the acceptances and (for resampling) the particles are
+        gathered from all ranks, as the JAX module's sharded weights are.
     device: the particles' device.
-
-    The JAX module's ``mesh``/``particle_axis`` (particles sharded over
-    devices) waits for the port's multi-GPU work.
 
     Returns
     -------
@@ -84,6 +93,13 @@ def smc_sample(log_prior, log_like, generator, n_particles=256, init=None,
     particles = torch.as_tensor(init, dtype=torch.float32).to(device)
     n, D = particles.shape
     ones = torch.ones(D, device=device)
+    rows = replicated(mesh)
+    if mesh is not None:
+        rows = sharded_along(mesh, particle_axis)
+    particles = rows.local(particles)
+
+    def local_draws(draws):
+        return {k: rows.local(v) for k, v in draws.items()}
 
     def mutate(particles, beta, eps):
         """A few MCMC moves targeting prior * like^beta; returns the
@@ -97,24 +113,26 @@ def smc_sample(log_prior, log_like, generator, n_particles=256, init=None,
             for _ in range(n_moves):
                 if moves == 'hmc':
                     states, infos = hmc_step(
-                        hmc_draws(generator, n, D, device), states, logp,
-                        eps, ones, n_leapfrog)
+                        local_draws(hmc_draws(generator, n, D, device)),
+                        states, logp, eps, ones, n_leapfrog)
                 else:
                     states, infos = nuts_step(
-                        nuts_draws(generator, n, D, max_depth, device),
+                        local_draws(nuts_draws(generator, n, D, max_depth,
+                                               device)),
                         states, logp, eps, ones, max_depth=max_depth)
-                accs.append(torch.mean(infos['accept_prob']))
+                accs.append(torch.mean(rows.gather(infos['accept_prob'])))
             return states.q, float(torch.stack(accs).mean())
         with torch.no_grad():
             lp = logp(particles)
             for _ in range(n_moves):
-                prop = particles + eps * _draw_on(generator, device, n, D)
+                prop = particles + eps * rows.local(
+                    _draw_on(generator, device, n, D))
                 lp_prop = logp(prop)
-                accept = torch.log(_draw_on(generator, device, n,
-                                            uniform=True)) < lp_prop - lp
+                accept = torch.log(rows.local(_draw_on(
+                    generator, device, n, uniform=True))) < lp_prop - lp
                 particles = torch.where(accept[:, None], prop, particles)
                 lp = torch.where(accept, lp_prop, lp)
-                accs.append(accept.float().mean())
+                accs.append(rows.gather(accept.float()).mean())
         return particles, float(torch.stack(accs).mean())
 
     beta = 0.0
@@ -124,11 +142,12 @@ def smc_sample(log_prior, log_like, generator, n_particles=256, init=None,
     eps = step_size
     while beta < 1.0 and stage < max_stages:
         with torch.no_grad():
-            ll = log_like(particles)
+            ll = rows.gather(log_like(particles))
         new_beta = _next_beta(ll, beta, target_frac, n)
         lw = (new_beta - beta) * ll
         log_evidence += float(torch.logsumexp(lw, dim=0) - math.log(n))
-        particles = particles[_systematic_resample(generator, lw, n)]
+        particles = rows.local(
+            rows.gather(particles)[_systematic_resample(generator, lw, n)])
         particles, acc = mutate(particles, new_beta, eps)
         # crude step-size control: toward ~30% acceptance for RW,
         # toward the ~80% canonical target for gradient moves
@@ -141,7 +160,7 @@ def smc_sample(log_prior, log_like, generator, n_particles=256, init=None,
         stage += 1
 
     return {
-        'samples': particles,
+        'samples': rows.gather(particles),
         'log_evidence': log_evidence,
         'n_stages': stage,
         'beta_history': betas,

@@ -31,6 +31,7 @@ from ...util import Timer
 from ...util.iterable import fold_like, flatten
 from ...util.pretty_tuple import pretty_tuple
 from ...graph import Graph, batch_graphs
+from ...ops.pcg import edge_segments
 from ._backend import backend_factory, resolve_device
 from ._kron import (ACCURACY_LIMIT, DEFAULT_RANK, KronPlan, _normalize_ranks,
                     calibrate_ranks, kron_domain, kron_eligible_feats)
@@ -44,6 +45,10 @@ from .starting_probability import StartingProbability, Uniform, Adhoc
 STREAM_CHUNK_FLOATS = 1 << 30
 #: working-set budget, in floats, of a chunk of pairs on the kron route
 KRON_CHUNK_FLOATS = 1 << 30
+#: the most a batched solve's budget grows to, in floats, with its C copies
+#: of each pair: C * 2^26 up to 2^29, so that C <= 8 hyperparameter vectors
+#: share the chunks of one (each chunk costs a ``jacfwd`` on the host)
+BATCHED_CHUNK_FLOATS = 1 << 29
 
 
 def _tree_map(f, tree):
@@ -377,7 +382,10 @@ class MarginalizedGraphKernel:
     def _prepare_batch(self, graphs, node_align=8):
         """Pack ``graphs`` into one padded batch; returns (GraphBatch of
         numpy arrays, dict of tensors on the device, p_fixed or None). The
-        dense arrays are stacked in mode ``'dense'`` only."""
+        dense arrays are stacked in mode ``'dense'`` only; the others carry
+        ``edge_lists``, each node's real edges (weight != 0) in edge order
+        (:func:`~graphdot_tpu_torch.ops.pcg.edge_segments`), over which the
+        tangent right-hand sides are summed."""
         dense = self.backend.mode == 'dense'
         batch = batch_graphs(graphs, node_align=node_align, dense=dense)
         fields = ['node_mask', 'degree', 'node_feats']
@@ -386,6 +394,10 @@ class MarginalizedGraphKernel:
         else:
             fields += ['esrc', 'edst', 'ew', 'edge_elist_feats']
         batch_dict = {f: self._tensors(getattr(batch, f)) for f in fields}
+        if not dense:
+            batch_dict['edge_lists'] = edge_segments(
+                batch_dict['esrc'], batch_dict['ew'] != 0,
+                batch.node_mask.shape[1])
 
         p_fixed = None
         if isinstance(self.p, Adhoc):
@@ -425,7 +437,7 @@ class MarginalizedGraphKernel:
             ops['edge_feats_1'] = g1(bd1['edge_feats'])
             ops['edge_feats_2'] = g2(bd2['edge_feats'])
         else:
-            for f in ('esrc', 'edst', 'ew'):
+            for f in ('esrc', 'edst', 'ew', 'edge_lists'):
                 ops[f + '_1'] = bd1[f][idx1]
                 ops[f + '_2'] = bd2[f][idx2]
             ops['edge_elist_feats_1'] = g1(bd1['edge_elist_feats'])
@@ -538,8 +550,9 @@ class MarginalizedGraphKernel:
         ``'cuda'`` without kron (:func:`._solver.chunk_route`) for the
         padded sizes; on the kron route, ``grid`` is the tensor grid's
         size R. ``copies`` systems a pair (a batched solve's C
-        hyperparameter vectors) multiply the working set of a pair, and
-        divide the cap of 4096 pairs a chunk."""
+        hyperparameter vectors) multiply the working set of a pair, the
+        budget (up to ``BATCHED_CHUNK_FLOATS``) and divide the cap of 4096
+        pairs a chunk."""
         n_theta = max(int(self.n_dims), 1)
         nn = n_pad * n_pad
         mode = self.backend.mode
@@ -564,6 +577,8 @@ class MarginalizedGraphKernel:
             per_pair = max(m_pad * m_pad + 4 * m_pad * n_pad + 8 * nn, 1)
             if route == 'stream':
                 budget = STREAM_CHUNK_FLOATS
+        if copies > 1:
+            budget = max(budget, min(budget * copies, BATCHED_CHUNK_FLOATS))
         if eval_gradient:
             per_pair *= 1 + n_theta
             if nodal:

@@ -29,8 +29,9 @@ import functools
 
 import torch
 
-from ...ops.pcg import (gather_offdiag, largest_packed_k, pcg, pcg_packed,
-                        pcg_resident, pcg_stream, resident_fits)
+from ...ops.pcg import (gather_offdiag, largest_packed_k, offdiag_operator,
+                        pcg, pcg_packed, pcg_resident, pcg_stream,
+                        resident_fits)
 from ._kron import (fold_side_2, kron_factors,
                     kron_grid_kernel, kron_offdiag, kron_pcg,
                     kron_tangent_offdiag)
@@ -396,7 +397,7 @@ def _plain_offdiag(system, mode, k):
     T = _repeat(system['T'], k)
     edges = [_repeat(system[f], k).long()
              for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2')]
-    return functools.partial(gather_offdiag, T, *edges)
+    return offdiag_operator(T, *edges)
 
 
 def _plain_matvec(system, mode, k=1):
@@ -541,10 +542,13 @@ def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode,
     with ``T_d``, ``diag_d`` and ``b_d`` from ``torch.func.jacfwd`` of
     :func:`mlgk_setup`'s elementwise part in theta (``W_d`` in mode
     ``'dense'``), and the plain gather matvec, which is linear in T, on each
-    direction's ``T_d``: the gather itself is not differentiated. In mode
-    ``'kron'`` the coupling's jacobian is the grid kernel's, ``C_d``
-    [n_theta, R, R], and each direction's term a kron matvec on x with side
-    2 folded with ``C_d`` (:func:`._kron.kron_tangent_offdiag`).
+    direction's ``T_d``: the gather itself is not differentiated. The matvec
+    sums each node's real edges in edge order
+    (:func:`~graphdot_tpu_torch.ops.pcg.offdiag_operator`), so that the
+    tangents are the same bits at every call, on the card as on the CPU.
+    In mode ``'kron'`` the coupling's jacobian is the grid kernel's,
+    ``C_d`` [n_theta, R, R], and each direction's term a kron matvec on x
+    with side 2 folded with ``C_d`` (:func:`._kron.kron_tangent_offdiag`).
 
     Parameters
     ----------
@@ -593,9 +597,15 @@ def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode,
         C_d = torch.movedim(C_d, -1, 1)
         edges = [_repeat(system[f], k).long()
                  for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2')]
+        # each node's real edges (weight != 0: a zero weight zeroes T and
+        # every T_d), listed once a graph, for each theta and tangent
+        copies = P // ops['edge_lists_1'].shape[0]
+        segments = tuple(
+            _repeat(ops[f'edge_lists_{s}'].repeat(copies, 1, 1), k)
+            for s in (1, 2))
         off = gather_offdiag(
             C_d.reshape(P * k, *C_d.shape[2:]), *edges,
-            xk.reshape(P * k, n1, n2)).view(P, k, n1, n2)
+            xk.reshape(P * k, n1, n2), segments).view(P, k, n1, n2)
     return {'rhs': b_d - diag_d * xk + off, 'Vx': Vx_d}
 
 

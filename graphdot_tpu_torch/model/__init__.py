@@ -1,7 +1,7 @@
 """Models on graph kernels; counterpart of ``graphdot_tpu/model``:
 Gaussian processes (:mod:`.gaussian_process`), Gaussian fields
-(:mod:`.gaussian_field`) and active learning (:mod:`.active_learning`).
-The JAX package's tree search has no counterpart here yet."""
+(:mod:`.gaussian_field`), active learning (:mod:`.active_learning`) and
+tree search (:mod:`.tree_search`)."""
 from .gaussian_process import (
     GaussianProcessRegressor,
     GPROutlierDetector,

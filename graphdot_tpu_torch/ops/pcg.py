@@ -20,7 +20,7 @@ lists (``esrc``/``edst`` indices), not as one-hot matrices.
   never falls back from the card to anything else.
 - :func:`pcg_resident_reference` is the same function in plain torch:
   batched over pairs with done masks, the matvec by ``index_select`` and
-  ``index_add_`` over the same edge lists.
+  sums over the same edge lists (:func:`offdiag_operator`).
 - :func:`pcg_stream` launches ``csrc/pcg_stream.cu`` on CUDA tensors (a
   cooperative grid with C CTAs per pair, each streaming its share of T
   from device memory in tiles, the CG vectors in a device workspace), for
@@ -99,35 +99,131 @@ def pcg(matvec, b, precond, tol, maxiter, return_iters=False):
     return x
 
 
-def gather_offdiag(T, esrc1, edst1, esrc2, edst2, Y):
-    """The off-diagonal product-graph matvec in gather form:
+def edge_segments(src, live, n):
+    """Each node's live edges, in edge order: [P, n, W] local edge indices
+    of the edges whose source is the node (W the most any node has), the
+    slots a node leaves free holding M, the index of a zero that
+    :func:`offdiag_operator` appends. ``src`` [P, M] and ``live`` [P, M]
+    bool."""
+    P, M = src.shape
+    device = src.device
+    key = torch.where(live, src.long(), n)
+    order = torch.argsort(key, dim=1, stable=True)
+    skey = torch.gather(key, 1, order)
+    counts = torch.zeros(P, n + 1, dtype=torch.long, device=device)
+    counts.scatter_add_(1, key, torch.ones_like(key))      # integer: exact
+    start = torch.cumsum(counts, dim=1) - counts
+    rank = torch.arange(M, device=device) - torch.gather(start, 1, skey)
+    W = int(counts[:, :n].max()) if P and n else 0
+    # every live edge to its (node, rank) slot; the dead ones to a spare
+    # slot at the end, which is cut off
+    slot = torch.where(
+        skey < n,
+        (torch.arange(P, device=device)[:, None] * n + skey) * W + rank,
+        P * n * W)
+    table = torch.full((P * n * W + 1,), M, dtype=torch.long, device=device)
+    table[slot.reshape(-1)] = order.reshape(-1)
+    return table[:-1].view(P, n, W)
+
+
+def offdiag_operator(T, esrc1, edst1, esrc2, edst2, segments=None):
+    """``Y [P,N1,N2] -> out [P,N1,N2]``, the off-diagonal product-graph
+    matvec in gather form over one operator:
 
     ``out[p,i1,i2] = sum_{e1: src1=i1} sum_{e2: src2=i2}
     T[p,e1,e2] Y[p, dst1(e1), dst2(e2)]``
 
-    T [P,M1,M2]; esrc1/edst1 [P,M1] and esrc2/edst2 [P,M2] integer tensors;
-    Y [P,N1,N2]. Returns [P,N1,N2]."""
-    P, N1, N2 = Y.shape
-    M1, M2 = T.shape[1:]
-    base1 = torch.arange(P, device=Y.device)[:, None] * N1
-    base2 = torch.arange(P, device=Y.device)[:, None] * N2
-    dst1 = (base1 + edst1).reshape(-1)
-    dst2 = (base2 + edst2).reshape(-1)
-    src1 = (base1 + esrc1).reshape(-1)
-    src2 = (base2 + esrc2).reshape(-1)
-    # G[p,e1,:] = Y[p, dst1(e1), :]
-    G = Y.reshape(P * N1, N2).index_select(0, dst1).view(P, M1, N2)
-    # H[p,e1,e2] = G[p, e1, dst2(e2)]  (selected from G^T by rows)
-    Ht = G.transpose(1, 2).reshape(P * N2, M1).index_select(0, dst2)
-    Z = T * Ht.view(P, M2, M1).transpose(1, 2)
-    # U[p,e1,i2] = sum_{e2: src2=i2} Z[p,e1,e2]
-    Ut = torch.zeros(P * N2, M1, dtype=Y.dtype, device=Y.device)
-    Ut.index_add_(0, src2, Z.transpose(1, 2).reshape(P * M2, M1))
-    U = Ut.view(P, N2, M1).transpose(1, 2).reshape(P * M1, N2)
-    # out[p,i1,i2] = sum_{e1: src1=i1} U[p,e1,i2]
-    out = torch.zeros(P * N1, N2, dtype=Y.dtype, device=Y.device)
-    out.index_add_(0, src1, U)
-    return out.view(P, N1, N2)
+    T [P,M1,M2]; esrc1/edst1 [P,M1] and esrc2/edst2 [P,M2] integer
+    tensors. Each output sums its terms in edge order, one after another,
+    so that it is the same, bit for bit, at every call and whichever other
+    pairs share the batch.
+
+    ``segments`` picks how the two sums over edges run. False: by
+    ``index_add_``, which adds in index order on the CPU. True: each node's
+    live edges (those whose row, side 1, or column, side 2, of T holds a
+    nonzero) are listed once (:func:`edge_segments`), and the sums are
+    gathers over those lists, added in order; a dead edge adds an exact
+    zero, so both give the same bits on finite data. A pair (seg1, seg2)
+    gives the two sides' lists (:func:`edge_segments` over the N1 and N2
+    nodes of Y), which must hold every edge whose T is nonzero: a caller
+    that knows the edges' weights lists the real ones and skips the scan
+    of T. On CUDA ``index_add_`` adds floats by atomics, in an order that
+    changes from run to run. None, the default, is True on CUDA tensors
+    and False on the CPU."""
+    P, M1, M2 = T.shape
+    device = T.device
+    if segments is None:
+        segments = T.is_cuda
+    esrc1, edst1, esrc2, edst2 = (e.long() for e in (esrc1, edst1, esrc2,
+                                                     edst2))
+
+    def gathered(Y):
+        """Z [P, M1, M2] = T o H, H[p,e1,e2] = Y[p, dst1(e1), dst2(e2)]"""
+        N1, N2 = Y.shape[1:]
+        dst1 = (torch.arange(P, device=device)[:, None] * N1
+                + edst1).reshape(-1)
+        dst2 = (torch.arange(P, device=device)[:, None] * N2
+                + edst2).reshape(-1)
+        # G[p,e1,:] = Y[p, dst1(e1), :]
+        G = Y.reshape(P * N1, N2).index_select(0, dst1).view(P, M1, N2)
+        # H[p,e1,e2] = G[p, e1, dst2(e2)]  (selected from G^T by rows)
+        Ht = G.transpose(1, 2).reshape(P * N2, M1).index_select(0, dst2)
+        return T * Ht.view(P, M2, M1).transpose(1, 2)
+
+    if segments is False:
+        def offdiag(Y):
+            N1, N2 = Y.shape[1:]
+            src1 = (torch.arange(P, device=device)[:, None] * N1
+                    + esrc1).reshape(-1)
+            src2 = (torch.arange(P, device=device)[:, None] * N2
+                    + esrc2).reshape(-1)
+            Z = gathered(Y)
+            # U[p,e1,i2] = sum_{e2: src2=i2} Z[p,e1,e2]
+            Ut = torch.zeros(P * N2, M1, dtype=Y.dtype, device=device)
+            Ut.index_add_(0, src2, Z.transpose(1, 2).reshape(P * M2, M1))
+            U = Ut.view(P, N2, M1).transpose(1, 2).reshape(P * M1, N2)
+            # out[p,i1,i2] = sum_{e1: src1=i1} U[p,e1,i2]
+            out = torch.zeros(P * N1, N2, dtype=Y.dtype, device=device)
+            out.index_add_(0, src1, U)
+            return out.view(P, N1, N2)
+        return offdiag
+
+    tables = {}
+
+    def table(N1, N2):
+        if segments is not True:
+            return segments
+        if (N1, N2) not in tables:
+            nz = T != 0
+            tables[N1, N2] = (edge_segments(esrc1, nz.any(dim=2), N1),
+                              edge_segments(esrc2, nz.any(dim=1), N2))
+        return tables[N1, N2]
+
+    def offdiag(Y):
+        N1, N2 = Y.shape[1:]
+        seg1, seg2 = table(N1, N2)
+        Z = gathered(Y)
+        Zp = torch.cat([Z, Z.new_zeros(P, M1, 1)], dim=2)
+        # U[p,e1,i2] = sum_{e2: src2=i2} Z[p,e1,e2], in e2's order
+        U = Z.new_zeros(P, M1, N2)
+        for w in range(seg2.shape[2]):
+            U = U + torch.gather(
+                Zp, 2, seg2[:, None, :, w].expand(P, M1, N2))
+        Up = torch.cat([U, U.new_zeros(P, 1, N2)], dim=1)
+        # out[p,i1,i2] = sum_{e1: src1=i1} U[p,e1,i2], in e1's order
+        out = Y.new_zeros(P, N1, N2)
+        for w in range(seg1.shape[2]):
+            out = out + torch.gather(
+                Up, 1, seg1[:, :, w, None].expand(P, N1, N2))
+        return out
+    return offdiag
+
+
+def gather_offdiag(T, esrc1, edst1, esrc2, edst2, Y, segments=None):
+    """The off-diagonal product-graph matvec in gather form,
+    :func:`offdiag_operator` of T and the edge lists (and ``segments``)
+    applied to Y [P,N1,N2]. Returns [P,N1,N2]."""
+    return offdiag_operator(T, esrc1, edst1, esrc2, edst2, segments)(Y)
 
 
 def live_extent(T, esrc1, edst1, esrc2, edst2, b):
@@ -244,15 +340,15 @@ def _check_packed(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
 def _plain_pcg(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
                maxiter):
     """The solve of both kernels in plain torch: :func:`pcg` over the
-    matvec of :func:`gather_offdiag`."""
+    matvec of :func:`offdiag_operator`."""
     P, M1, M2, N1, N2 = _check(T, esrc1, edst1, esrc2, edst2, diag,
                                precond, b, tol, maxiter)
     N = N1 * N2
-    e1s, e1d, e2s, e2d = (e.long() for e in (esrc1, edst1, esrc2, edst2))
+    offdiag = offdiag_operator(T, esrc1, edst1, esrc2, edst2)
     diag_flat = diag.reshape(P, N)
 
     def matvec(y):
-        off = gather_offdiag(T, e1s, e1d, e2s, e2d, y.view(P, N1, N2))
+        off = offdiag(y.view(P, N1, N2))
         return diag_flat * y - off.reshape(P, N)
 
     x, iters = pcg(matvec, b.reshape(P, N), precond.reshape(P, N), tol,
@@ -293,7 +389,7 @@ def pcg_packed_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
     ``rz``, ``pAp`` and ``r.r`` are summed over the members, alpha and beta
     are shared, the breakdown guards apply to the group and the group stops
     at ``sqrt(sum_m r_m.r_m) < tol[s]``. Each member's matvec is
-    :func:`gather_offdiag` over its own operator."""
+    :func:`offdiag_operator` over its own operator."""
     S, k, ka, M1, M2, N1, N2 = _check_packed(
         T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter)
     N = N1 * N2
@@ -303,11 +399,12 @@ def pcg_packed_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
         return a.expand(S, k, *a.shape[2:]).reshape(S * k, *a.shape[2:])
 
     Tm = members(T)
-    edges = [members(e).long() for e in (esrc1, edst1, esrc2, edst2)]
+    offdiag = offdiag_operator(Tm, *(members(e) for e in (esrc1, edst1,
+                                                          esrc2, edst2)))
     diag_flat = members(diag).reshape(S, k * N)
 
     def matvec(y):
-        off = gather_offdiag(Tm, *edges, y.view(S * k, N1, N2))
+        off = offdiag(y.view(S * k, N1, N2))
         return diag_flat * y - off.reshape(S, k * N)
 
     x, iters = pcg(matvec, b.reshape(S, k * N),

@@ -29,7 +29,8 @@ from graphdot_tpu_torch.microkernel import (  # noqa: E402
 from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
     cuda_tangent_solver, mlgk_tangents)
 from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
-    PACKED_MAX_K, group_pairs, largest_packed_k, live_extent, pcg_packed,
+    PACKED_MAX_K, group_pairs, largest_packed_k, live_extent,
+    offdiag_operator, pcg_packed,
     pcg_packed_reference, pcg_resident, pcg_resident_reference, pcg_stream,
     pcg_stream_reference, stream_grid)
 from graphdot_tpu_torch.testing import (  # noqa: E402
@@ -691,3 +692,33 @@ def test_maximin_hotspot_gradient_on_the_card(card, buckets):
     agree &= ~np.eye(len(graphs), dtype=bool)
     assert np.abs(dD - dD_cpu)[agree].max() <= \
         1e-3 * np.abs(dD_cpu).max() + 1e-4
+
+
+def test_offdiag_repeats_bit_for_bit_on_the_card(card):
+    """The off-diagonal matvec of the tangent right-hand sides on the card
+    (segment sums, no float atomics): the same bits at every call, and the
+    bits of the CPU's ``index_add_``, on the tangent systems of a molecule
+    chunk."""
+    kernel = _kernel(card)
+    graphs = random_molecule_set(7, 12, n_atoms_range=(9, 24))
+    _, bd, _ = kernel._prepare_batch(graphs)
+    i, j = np.triu_indices(len(graphs))
+    idx1, idx2 = (torch.as_tensor(a, device=card) for a in (i, j))
+    ops = kernel._operands(bd, bd, idx1, idx2)
+    theta = kernel._theta_vector()
+    s = mlgk_setup(theta, ops, knode=kernel.node_kernel,
+                   kedge=kernel.edge_kernel, n_p_theta=1, mode='cuda')
+    args = [s['T']] + [s[f] for f in ('esrc_1', 'edst_1', 'esrc_2',
+                                      'edst_2')]
+    Y = torch.randn(s['diag'].shape, generator=torch.Generator(
+        device=card).manual_seed(0), device=card)
+    first = offdiag_operator(*args)(Y)
+    for _ in range(3):
+        assert torch.equal(offdiag_operator(*args)(Y), first)
+    cpu = offdiag_operator(*(a.cpu() for a in args))(Y.cpu())
+    assert torch.equal(first.cpu(), cpu)
+    x = torch.rand_like(s['diag'])
+    rhs = [mlgk_tangents(theta, ops, s, x, knode=kernel.node_kernel,
+                         kedge=kernel.edge_kernel, n_p_theta=1,
+                         mode='cuda')['rhs'] for _ in range(3)]
+    assert all(torch.equal(r, rhs[0]) for r in rhs)

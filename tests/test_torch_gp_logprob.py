@@ -282,6 +282,25 @@ def test_gp_nuts_short_chain():
     assert np.all(s.std(axis=1) > 1e-6), s.std(axis=1)
 
 
+def test_sample_repeats_on_one_logprob():
+    """Two runs of ``sample`` from one seed on one ``GPRLogProb`` give the
+    same bits (nothing that a call leaves behind changes the next), and so
+    does ``value_and_grad`` at 8 thetas before and after them."""
+    G = graphs('port', 'gp')
+    lp = GPRLogProb(port_kernel(), G, gp_targets(G), alpha=ALPHA)
+    thetas = torch.from_numpy(jittered(lp.theta0, 7))
+    before = lp.value_and_grad()(thetas)
+    runs = [sample(lp, torch.Generator().manual_seed(0), n_chains=2,
+                   n_warmup=10, n_samples=3, init=lp.theta0, max_depth=3,
+                   init_jitter=0.1, device='cpu') for _ in range(2)]
+    for key in ('samples', 'logp', 'accept_prob', 'divergent', 'inv_mass'):
+        assert torch.equal(runs[0][key], runs[1][key]), key
+    assert runs[0]['step_size'] == runs[1]['step_size']
+    after = lp.value_and_grad()(thetas)
+    assert torch.equal(before[0], after[0])
+    assert torch.equal(before[1], after[1])
+
+
 def fixture_transition(ref, lp, device='cpu'):
     """The fixture's GP NUTS transition through the port's ``nuts_step``
     with the fixture's start state and draws: (state, info)."""

@@ -23,7 +23,7 @@ from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
 from graphdot_tpu_torch.microkernel import (  # noqa: E402
     KroneckerDelta, SquareExponential, TensorProduct)
 from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
-    gather_offdiag, pcg_resident, pcg_resident_reference)
+    gather_offdiag, offdiag_operator, pcg_resident, pcg_resident_reference)
 
 
 def molecule_systems():
@@ -101,6 +101,68 @@ def test_gather_offdiag_matches_onehot_contractions():
                            for k in ('s1', 'd1', 's2', 'd2')),
                          torch.from_numpy(Y))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def offdiag_operands(seed, P, M1, M2, N1, N2):
+    """Random operands of :func:`offdiag_operator`: T with zeros and dead
+    rows and columns (padding edges at node 0), edge lists and Y."""
+    rng = np.random.default_rng(seed)
+    T = rng.normal(size=(P, M1, M2)).astype(np.float32)
+    T[T < -0.5] = 0.0
+    T[:, M1 // 2:, :] *= rng.random((P, M1 - M1 // 2, 1)) < 0.7
+    T[:, :, M2 // 2:] *= rng.random((P, 1, M2 - M2 // 2)) < 0.7
+    edges = [rng.integers(0, n, (P, m)).astype(np.int32)
+             for n, m in ((N1, M1), (N1, M1), (N2, M2), (N2, M2))]
+    for e in edges:
+        e[:, -2:] = 0        # padding edges, as the batcher lays them
+    Y = rng.normal(size=(P, N1, N2)).astype(np.float32)
+    return (torch.from_numpy(T), *map(torch.from_numpy, edges),
+            torch.from_numpy(Y))
+
+
+@pytest.mark.parametrize('shape', [(5, 11, 9, 6, 7), (3, 40, 56, 16, 24),
+                                   (2, 3, 1, 2, 1), (1, 0, 4, 3, 3)])
+def test_offdiag_segments_equal_index_add_bitwise(shape):
+    """The segment sums that run on the card give the bits of the CPU's
+    ``index_add_`` (both add each node's edges in edge order), equal the
+    one-hot contractions' numbers, and give a pair the same bits alone
+    as in a batch."""
+    *ops, Y = offdiag_operands(sum(shape), *shape)
+    by_index = offdiag_operator(*ops, segments=False)(Y)
+    by_segment = offdiag_operator(*ops, segments=True)(Y)
+    assert torch.equal(by_index, by_segment)
+    assert torch.equal(gather_offdiag(*ops, Y), by_index)
+    alone = offdiag_operator(*(o[-1:] for o in ops), segments=True)(Y[-1:])
+    assert torch.equal(alone[0], by_segment[-1])
+
+
+@pytest.mark.parametrize('batched', [False, True])
+def test_tangent_rhs_segments_equal_index_add_bitwise(batched, monkeypatch):
+    """``mlgk_tangents`` lists each node's real edges (weight != 0) once a
+    system and sums the tangent right-hand sides over them: the bits of
+    ``index_add_`` on the CPU, one theta or two."""
+    from graphdot_tpu_torch.kernel.marginalized import _solver
+    kernel = MarginalizedGraphKernel(
+        TensorProduct(element=KroneckerDelta(0.2)),
+        TensorProduct(length=SquareExponential(0.3)), q=0.05, device='cpu')
+    graphs = random_molecule_set(7, 12, n_atoms_range=(9, 24))
+    _, bd, _ = kernel._prepare_batch(graphs)
+    i, j = np.triu_indices(len(graphs))
+    ops = kernel._operands(bd, bd, torch.as_tensor(i), torch.as_tensor(j))
+    theta = kernel._theta_vector()
+    if batched:
+        theta = torch.stack([theta, 1.1 * theta])
+    setup = _solver._setup_over_thetas if batched else _solver.mlgk_setup
+    kw = dict(knode=kernel.node_kernel, kedge=kernel.edge_kernel,
+              n_p_theta=1, mode='cuda')
+    s = setup(theta, ops, **kw)
+    x = torch.rand(s['diag'].shape, generator=torch.Generator().manual_seed(0))
+    got = _solver.mlgk_tangents(theta, ops, s, x, **kw)['rhs']
+    plain = _solver.gather_offdiag
+    monkeypatch.setattr(_solver, 'gather_offdiag', lambda *a: plain(
+        *a[:6], segments=False))
+    want = _solver.mlgk_tangents(theta, ops, s, x, **kw)['rhs']
+    assert got.shape[1] == 4 and torch.equal(got, want)
 
 
 def test_reference_stop_rules():

@@ -113,6 +113,16 @@ def test_port_imports_nothing_of_the_jax_package():
         '    G, [1.0, float("nan"), 3.0])\n'
         'assert z.shape == (3,)\n'
         'assert cholesky.CholSolver([[4.0]], device="cpu") @ [8.0] == 2.0\n'
+        'from graphdot_tpu_torch.parallel import (\n'
+        '    make_mesh, sharded_gram_fn, sharded_gp_solve, init_distributed)\n'
+        'assert sharded_gram_fn(f, make_mesh())(f.theta0).shape == (3, 3)\n'
+        'from graphdot_tpu_torch.model.tree_search import (\n'
+        '    MCTSGraphTransformer, LookAheadSequenceRewriter)\n'
+        'from graphdot_tpu_torch.graph.reorder import rcm, pbr\n'
+        'assert sorted(pbr(G[0])) == list(range(len(G[0].nodes)))\n'
+        'from graphdot_tpu_torch.minipandas import DataFrame, Series\n'
+        'from graphdot_tpu_torch.util.flops import gram_flop_report\n'
+        'from graphdot_tpu_torch.util.random import as_generator\n'
         'bad = sorted(m for m in sys.modules\n'
         '             if m == "graphdot_tpu" or m.startswith("graphdot_tpu.")\n'
         '             or m == "jax" or m.startswith(("jax.", "jaxlib")))\n'
@@ -189,6 +199,39 @@ def test_graphs_batch_across_packages():
             getattr(want, field), field)
     keys = set(port_graphs[0].cookie)
     assert keys == {'graphdot_tpu.packed', 'graphdot_tpu_torch.packed'}
+
+
+@pytest.mark.parametrize('seed', [0, 7, 'generator'])
+def test_random_copy_matches_the_jax_package(seed):
+    from graphdot_tpu.util.random import as_generator as jax_as_generator
+    from graphdot_tpu_torch.util.random import as_generator
+    if seed == 'generator':
+        rng = np.random.default_rng(3)
+        assert as_generator(rng) is rng
+        seed = 3
+    got, want = as_generator(seed), jax_as_generator(seed)
+    np.testing.assert_array_equal(got.random(7), want.random(7))
+    np.testing.assert_array_equal(got.integers(0, 100, 9),
+                                  want.integers(0, 100, 9))
+    assert isinstance(as_generator(None), np.random.Generator)
+
+
+def test_minipandas_copy_matches_the_jax_package():
+    from graphdot_tpu import minipandas as jax_minipandas
+    from graphdot_tpu_torch import minipandas
+    data = {'a': [3, 1, 2], 'b': [0.5, -1.0, 2.25], 'c': ['x', 'y', 'z']}
+    got, want = minipandas.DataFrame(data), jax_minipandas.DataFrame(data)
+    assert list(got.columns) == list(want.columns) and len(got) == 3
+    for col in data:
+        _assert_tree_equal(got[col], want[col], col)
+        assert got[col].concrete_type == want[col].concrete_type
+    assert list(got.itertuples()) == list(want.itertuples())
+    got['d'] = got.a * 2
+    want['d'] = want.a * 2
+    _assert_tree_equal(got.drop(['a']).d, want.drop(['a']).d, 'd')
+    assert got.to_pandas().equals(want.to_pandas())
+    _assert_tree_equal(minipandas.Series([1.0, 2.0]),
+                       jax_minipandas.Series([1.0, 2.0]), 'series')
 
 
 def _kernel_kwargs():
