@@ -7,7 +7,11 @@ live chains in one call. Adaptation statistics are pooled across chains by
 plain means. Over a mesh (``mesh``, ``chain_axis``) each rank advances its
 block of the chains, and the pooled statistics and the samples are
 gathered from all ranks first, so that a sharded run equals the unsharded
-one draw for draw.
+one draw for draw when the log density gives each row the same bits
+whatever rows share its call. ``GPRLogProb`` does on the CPU; on CUDA a
+row's value changes in its last bits with the rows beside it, so sharded
+chains there equal unsharded ones only to rounding, and drift apart over a
+run.
 """
 import math
 
@@ -113,7 +117,8 @@ def sample(logp_fn, generator, n_chains=4, n_warmup=300, n_samples=500,
         samples are gathered from all ranks before they are reduced or
         returned. The run is then the unsharded one, draw for draw, when
         ``logp_fn`` gives each row the same bits whatever rows share its
-        call.
+        call; ``GPRLogProb`` on CUDA does not (the module docstring), and
+        there the two runs agree only to rounding.
     step_size, inv_mass: both given resume a run with these adaptation
         products (:func:`~.checkpoint.resume_state`) and skip warmup.
     device: the chains' tensors (positions, momenta, tree state) live here;

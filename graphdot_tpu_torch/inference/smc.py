@@ -8,7 +8,10 @@ with systematic resampling and random-walk, HMC or NUTS mutation moves.
 Over a mesh (``mesh``, ``particle_axis``) each rank moves its block of the
 particles; the log likelihoods and the acceptances are gathered from all
 ranks before they are reduced, and the particles before resampling, so
-that a sharded run equals the unsharded one.
+that a sharded run equals the unsharded one when the log density gives
+each row the same bits whatever rows share its call: ``GPRLogProb`` does
+on the CPU; on CUDA its rows change in their last bits with the rows
+beside them, and a sharded run equals the unsharded one only to rounding.
 """
 import math
 
@@ -78,6 +81,9 @@ def smc_sample(log_prior, log_like, generator, n_particles=256, init=None,
         particles' draws from ``generator`` and takes its block's; the log
         likelihoods, the acceptances and (for resampling) the particles are
         gathered from all ranks, as the JAX module's sharded weights are.
+        The run is the unsharded one, draw for draw, when the log density
+        gives each row the same bits whatever rows share its call (on CUDA
+        ``GPRLogProb`` does not: equal only to rounding there).
     device: the particles' device.
 
     Returns

@@ -385,7 +385,7 @@ class MarginalizedGraphKernel:
         dense arrays are stacked in mode ``'dense'`` only; the others carry
         ``edge_lists``, each node's real edges (weight != 0) in edge order
         (:func:`~graphdot_tpu_torch.ops.pcg.edge_segments`), over which the
-        tangent right-hand sides are summed."""
+        plain matvecs and the tangent right-hand sides sum."""
         dense = self.backend.mode == 'dense'
         batch = batch_graphs(graphs, node_align=node_align, dense=dense)
         fields = ['node_mask', 'degree', 'node_feats']

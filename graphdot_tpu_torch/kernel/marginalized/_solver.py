@@ -286,8 +286,9 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode, kron=None):
     dict with ``Vx``, ``valid``, ``diag``, ``precond``, ``b`` [P, n1, n2],
     ``tol`` [P] (``ops['ftol'] * n1 * n2``; ``gtol`` [P] too when ops
     has ``'gtol'``), and the coupling: ``T`` [P, M1, M2] with the int32 edge
-    lists ``esrc_1``, ``edst_1``, ``esrc_2``, ``edst_2`` (edge-factored
-    modes), ``W`` [P, n1, n1, n2, n2] ('dense'), or the Kronecker factors
+    lists ``esrc_1``, ``edst_1``, ``esrc_2``, ``edst_2`` and each node's
+    real edges ``edge_lists_1``, ``edge_lists_2`` (edge-factored modes;
+    T is 0 at the padded edges), ``W`` [P, n1, n1, n2, n2] ('dense'), or the Kronecker factors
     ``A1s``, ``B2s``, ``V2`` and the grid kernel ``C`` [R, R] ('kron', no T:
     :func:`._kron.kron_factors`).
     """
@@ -340,8 +341,10 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode, kron=None):
         ef1 = _expand_dict(raw_ef1, (3, 4))  # [P,n1,n1,1,1(,L)]
         ef2 = _expand_dict(raw_ef2, (1, 2))  # [P,1,1,n2,n2(,L)]
         ke = _apply_on_features(kedge, te, ef1, ef2)
-        # W[c, i1, j1, i2, j2]
-        W = ke * adj1[:, :, :, None, None] * adj2[:, None, None, :, :]
+        # W[c, i1, j1, i2, j2], zero off the edges by a mask (as T below)
+        a1 = adj1[:, :, :, None, None]
+        a2 = adj2[:, None, None, :, :]
+        W = torch.where((a1 != 0) & (a2 != 0), ke * a1 * a2, 0.0)
         system['W'] = W.expand(P, n1, n1, n2, n2)
         return system
     if mode == 'kron':
@@ -357,9 +360,16 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode, kron=None):
     eef1 = _expand_dict(raw_eef1, (2,))  # [P,M1,1(,L)]
     eef2 = _expand_dict(raw_eef2, (1,))  # [P,1,M2(,L)]
     ke = _apply_on_features(kedge, te, eef1, eef2)
-    T = ke * ew1[:, :, None] * ew2[:, None, :]
+    # zero at the padded edges (weight 0) by a mask, not by the weight
+    # alone: at a tiny length scale the edge kernel's derivative overflows
+    # against a padded edge's features where it does not between real
+    # edges, and 0 * inf would make T_d NaN there (the JAX package
+    # multiplies by the weights, and its gradients are NaN at such theta)
+    w1, w2 = ew1[:, :, None], ew2[:, None, :]
+    T = torch.where((w1 != 0) & (w2 != 0), ke * w1 * w2, 0.0)
     system['T'] = T.expand(P, ew1.shape[1], ew2.shape[1]).contiguous()
-    for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2'):
+    for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'edge_lists_1',
+              'edge_lists_2'):
         system[f] = ops[f]
     return system
 
@@ -378,6 +388,16 @@ def _repeat(a, k):
     return a if k == 1 else a.repeat_interleave(k, dim=0)
 
 
+def _edges(system, k=1):
+    """The edge-factored system's four edge lists and the pair of its
+    nodes' real-edge lists
+    (:func:`~graphdot_tpu_torch.ops.pcg.offdiag_operator`'s ``segments``),
+    each pair's k times in a row."""
+    return (*(_repeat(system[f], k) for f in ('esrc_1', 'edst_1', 'esrc_2',
+                                              'edst_2')),
+            tuple(_repeat(system[f'edge_lists_{s}'], k) for s in (1, 2)))
+
+
 def _plain_offdiag(system, mode, k):
     """The off-diagonal matvec of the plain modes over Y [P * k, n1, n2]:
     k systems a pair, all with the pair's coupling."""
@@ -394,10 +414,7 @@ def _plain_offdiag(system, mode, k):
             return kron_offdiag(system['A1s'], system['B2s'],
                                 Y.view(P, k, n1, n2)).reshape(P * k, n1, n2)
         return offdiag
-    T = _repeat(system['T'], k)
-    edges = [_repeat(system[f], k).long()
-             for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2')]
-    return offdiag_operator(T, *edges)
+    return offdiag_operator(_repeat(system['T'], k), *_edges(system, k))
 
 
 def _plain_matvec(system, mode, k=1):
@@ -518,11 +535,10 @@ def solve_linear(system, mode, maxiter, route=None):
                                 Y.unsqueeze(1))[:, 0]
     else:
         coupling = system['T']
-        edges = [system[f].long()
-                 for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2')]
+        *edges, segments = _edges(system)
 
         def offdiag(T, Y):
-            return gather_offdiag(T, *edges, Y)
+            return gather_offdiag(T, *edges, Y, segments)
 
     def matvec(y, diag, C):
         return diag * y - offdiag(C, y)
@@ -545,7 +561,8 @@ def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode,
     direction's ``T_d``: the gather itself is not differentiated. The matvec
     sums each node's real edges in edge order
     (:func:`~graphdot_tpu_torch.ops.pcg.offdiag_operator`), so that the
-    tangents are the same bits at every call, on the card as on the CPU.
+    tangents are the same bits at every call, on the card as on the CPU;
+    ``T_d`` is 0 at the padded edges (:func:`mlgk_setup`).
     In mode ``'kron'`` the coupling's jacobian is the grid kernel's,
     ``C_d`` [n_theta, R, R], and each direction's term a kron matvec on x
     with side 2 folded with ``C_d`` (:func:`._kron.kron_tangent_offdiag`).
@@ -595,14 +612,7 @@ def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode,
         off = torch.einsum('cijkld,cjl->cdik', C_d, x.detach())
     else:
         C_d = torch.movedim(C_d, -1, 1)
-        edges = [_repeat(system[f], k).long()
-                 for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2')]
-        # each node's real edges (weight != 0: a zero weight zeroes T and
-        # every T_d), listed once a graph, for each theta and tangent
-        copies = P // ops['edge_lists_1'].shape[0]
-        segments = tuple(
-            _repeat(ops[f'edge_lists_{s}'].repeat(copies, 1, 1), k)
-            for s in (1, 2))
+        *edges, segments = _edges(system, k)
         off = gather_offdiag(
             C_d.reshape(P * k, *C_d.shape[2:]), *edges,
             xk.reshape(P * k, n1, n2), segments).view(P, k, n1, n2)

@@ -134,26 +134,20 @@ def offdiag_operator(T, esrc1, edst1, esrc2, edst2, segments=None):
     T[p,e1,e2] Y[p, dst1(e1), dst2(e2)]``
 
     T [P,M1,M2]; esrc1/edst1 [P,M1] and esrc2/edst2 [P,M2] integer
-    tensors. Each output sums its terms in edge order, one after another,
-    so that it is the same, bit for bit, at every call and whichever other
-    pairs share the batch.
+    tensors. The two sums run over each node's edge lists
+    (:func:`edge_segments`): each output adds its terms one after another
+    from 0, in edge order, as ``index_add_`` does on the CPU, so that it is
+    the same, bit for bit, at every call, on every device and whichever
+    other pairs share the batch (on CUDA ``index_add_`` adds floats by
+    atomics, in an order that changes from run to run).
 
-    ``segments`` picks how the two sums over edges run. False: by
-    ``index_add_``, which adds in index order on the CPU. True: each node's
-    live edges (those whose row, side 1, or column, side 2, of T holds a
-    nonzero) are listed once (:func:`edge_segments`), and the sums are
-    gathers over those lists, added in order; a dead edge adds an exact
-    zero, so both give the same bits on finite data. A pair (seg1, seg2)
-    gives the two sides' lists (:func:`edge_segments` over the N1 and N2
-    nodes of Y), which must hold every edge whose T is nonzero: a caller
-    that knows the edges' weights lists the real ones and skips the scan
-    of T. On CUDA ``index_add_`` adds floats by atomics, in an order that
-    changes from run to run. None, the default, is True on CUDA tensors
-    and False on the CPU."""
+    ``segments`` is the pair (seg1, seg2) of the two sides' lists over the
+    N1 and N2 nodes of Y, which must hold every edge whose row (side 1) or
+    column (side 2) of T holds a nonzero: the kernel's packed batches carry
+    the lists of each graph's real edges. None lists the live edges of T
+    itself, once a node count."""
     P, M1, M2 = T.shape
     device = T.device
-    if segments is None:
-        segments = T.is_cuda
     esrc1, edst1, esrc2, edst2 = (e.long() for e in (esrc1, edst1, esrc2,
                                                      edst2))
 
@@ -170,28 +164,10 @@ def offdiag_operator(T, esrc1, edst1, esrc2, edst2, segments=None):
         Ht = G.transpose(1, 2).reshape(P * N2, M1).index_select(0, dst2)
         return T * Ht.view(P, M2, M1).transpose(1, 2)
 
-    if segments is False:
-        def offdiag(Y):
-            N1, N2 = Y.shape[1:]
-            src1 = (torch.arange(P, device=device)[:, None] * N1
-                    + esrc1).reshape(-1)
-            src2 = (torch.arange(P, device=device)[:, None] * N2
-                    + esrc2).reshape(-1)
-            Z = gathered(Y)
-            # U[p,e1,i2] = sum_{e2: src2=i2} Z[p,e1,e2]
-            Ut = torch.zeros(P * N2, M1, dtype=Y.dtype, device=device)
-            Ut.index_add_(0, src2, Z.transpose(1, 2).reshape(P * M2, M1))
-            U = Ut.view(P, N2, M1).transpose(1, 2).reshape(P * M1, N2)
-            # out[p,i1,i2] = sum_{e1: src1=i1} U[p,e1,i2]
-            out = torch.zeros(P * N1, N2, dtype=Y.dtype, device=device)
-            out.index_add_(0, src1, U)
-            return out.view(P, N1, N2)
-        return offdiag
-
     tables = {}
 
     def table(N1, N2):
-        if segments is not True:
+        if segments is not None:
             return segments
         if (N1, N2) not in tables:
             nz = T != 0

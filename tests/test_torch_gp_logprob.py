@@ -175,6 +175,38 @@ def test_grad_matches_central_differences():
         assert float(grad[i]) == pytest.approx(fd, rel=0.05, abs=0.02), i
 
 
+#: log theta of gp_problem with a length scale of 1.5e-13: there the edge
+#: kernel's derivative overflows float32 against a padded edge's length (0)
+#: but not between real bonds (1.0-1.8), found by a seeded search
+TINY_LENGTH_THETA = (-2.2526717, -4.2657475, -1.0926995, -29.531305)
+
+
+def test_tiny_length_scale_gradient_matches_jax_differences():
+    """Where the edge kernel's derivative overflows against the padded
+    edges' features, the port's T_d is 0 at those edges (a mask in
+    ``mlgk_setup``), so its gradient is finite: it equals JAX's in the
+    directions where JAX's is finite, and central differences of JAX's
+    log density in all of them. JAX multiplies the padded edges' NaN by
+    their weight 0 and returns NaN in the length scale's direction."""
+    G, Gj = graphs('port', 'gp'), graphs('jax', 'gp')
+    lp = GPRLogProb(port_kernel(), G, gp_targets(G), alpha=ALPHA)
+    lpj = JaxGPRLogProb(jax_kernel(), Gj, gp_targets(Gj), alpha=ALPHA)
+    t = np.array(TINY_LENGTH_THETA, dtype=np.float32)
+    logp, grad = lp.value_and_grad()(torch.from_numpy(t))
+    logp_want, grad_want = jax_value_and_grad(lpj, [t])
+    assert np.isnan(grad_want[0, 3]) and np.isfinite(grad_want[0, :3]).all()
+    assert np.isfinite(grad.numpy()).all()
+    ok = np.isfinite(grad_want[0])
+    _assert_logp_grad([float(logp)], grad.numpy()[None, ok],
+                      logp_want, grad_want[:, ok], 1e-4)
+    eps = 1e-2
+    for i in range(len(t)):
+        step = np.eye(len(t), dtype=np.float32)[i] * eps
+        fd = (float(lpj(jnp.asarray(t + step)))
+              - float(lpj(jnp.asarray(t - step)))) / (2 * eps)
+        assert float(grad[i]) == pytest.approx(fd, rel=0.05, abs=0.02), i
+
+
 def test_gram_matches_normalization():
     lp = logprob('port')
     K = lp.factory.gram(lp.theta0).numpy()

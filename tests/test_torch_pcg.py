@@ -23,7 +23,8 @@ from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
 from graphdot_tpu_torch.microkernel import (  # noqa: E402
     KroneckerDelta, SquareExponential, TensorProduct)
 from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
-    gather_offdiag, offdiag_operator, pcg_resident, pcg_resident_reference)
+    edge_segments, gather_offdiag, offdiag_operator, pcg_resident,
+    pcg_resident_reference)
 
 
 def molecule_systems():
@@ -120,27 +121,56 @@ def offdiag_operands(seed, P, M1, M2, N1, N2):
             torch.from_numpy(Y))
 
 
+def sequential_offdiag(T, esrc1, edst1, esrc2, edst2, Y):
+    """The matvec of :func:`offdiag_operator` by float32 scalar adds, each
+    node's terms from 0 in edge order: U over side 2's edges, then out
+    over side 1's."""
+    T, Y = T.numpy(), Y.numpy()
+    s1, d1, s2, d2 = (e.numpy() for e in (esrc1, edst1, esrc2, edst2))
+    P, M1, M2 = T.shape
+    N1, N2 = Y.shape[1:]
+    out = np.zeros((P, N1, N2), np.float32)
+    for p in range(P):
+        U = np.zeros((M1, N2), np.float32)
+        for e1 in range(M1):
+            for e2 in range(M2):
+                U[e1, s2[p, e2]] = np.float32(
+                    U[e1, s2[p, e2]] + T[p, e1, e2] * Y[p, d1[p, e1],
+                                                        d2[p, e2]])
+        for e1 in range(M1):
+            out[p, s1[p, e1]] = (out[p, s1[p, e1]] + U[e1]).astype(
+                np.float32)
+    return torch.from_numpy(out)
+
+
 @pytest.mark.parametrize('shape', [(5, 11, 9, 6, 7), (3, 40, 56, 16, 24),
                                    (2, 3, 1, 2, 1), (1, 0, 4, 3, 3)])
-def test_offdiag_segments_equal_index_add_bitwise(shape):
-    """The segment sums that run on the card give the bits of the CPU's
-    ``index_add_`` (both add each node's edges in edge order), equal the
-    one-hot contractions' numbers, and give a pair the same bits alone
-    as in a batch."""
+def test_offdiag_sums_each_node_in_edge_order(shape):
+    """Each output adds its terms from 0 in edge order: the bits of scalar
+    float32 adds in that order, whether the lists come from a scan of T
+    or hold every edge (a dead one adds an exact zero), and a pair's bits
+    alone are those it has in a batch."""
     *ops, Y = offdiag_operands(sum(shape), *shape)
-    by_index = offdiag_operator(*ops, segments=False)(Y)
-    by_segment = offdiag_operator(*ops, segments=True)(Y)
-    assert torch.equal(by_index, by_segment)
-    assert torch.equal(gather_offdiag(*ops, Y), by_index)
-    alone = offdiag_operator(*(o[-1:] for o in ops), segments=True)(Y[-1:])
-    assert torch.equal(alone[0], by_segment[-1])
+    T, esrc1, _, esrc2, _ = ops
+    P, M1, M2, N1, N2 = shape
+    every = (edge_segments(esrc1, torch.ones(P, M1, dtype=torch.bool), N1),
+             edge_segments(esrc2, torch.ones(P, M2, dtype=torch.bool), N2))
+    want = sequential_offdiag(*ops, Y)
+    scanned = offdiag_operator(*ops)(Y)
+    assert torch.equal(scanned, want)
+    assert torch.equal(offdiag_operator(*ops, every)(Y), want)
+    assert torch.equal(gather_offdiag(*ops, Y), want)
+    alone = offdiag_operator(*(o[-1:] for o in ops))(Y[-1:])
+    assert torch.equal(alone[0], scanned[-1])
 
 
 @pytest.mark.parametrize('batched', [False, True])
-def test_tangent_rhs_segments_equal_index_add_bitwise(batched, monkeypatch):
-    """``mlgk_tangents`` lists each node's real edges (weight != 0) once a
-    system and sums the tangent right-hand sides over them: the bits of
-    ``index_add_`` on the CPU, one theta or two."""
+def test_tangent_rhs_real_edge_lists_equal_scanned_lists(batched,
+                                                         monkeypatch):
+    """``mlgk_tangents`` sums the tangent right-hand sides over the lists
+    of each graph's real edges (weight != 0) that the packed batch
+    carries: the bits of lists from a scan of each T_d, one theta or
+    two."""
     from graphdot_tpu_torch.kernel.marginalized import _solver
     kernel = MarginalizedGraphKernel(
         TensorProduct(element=KroneckerDelta(0.2)),
@@ -159,8 +189,8 @@ def test_tangent_rhs_segments_equal_index_add_bitwise(batched, monkeypatch):
     x = torch.rand(s['diag'].shape, generator=torch.Generator().manual_seed(0))
     got = _solver.mlgk_tangents(theta, ops, s, x, **kw)['rhs']
     plain = _solver.gather_offdiag
-    monkeypatch.setattr(_solver, 'gather_offdiag', lambda *a: plain(
-        *a[:6], segments=False))
+    monkeypatch.setattr(_solver, 'gather_offdiag',
+                        lambda *a: plain(*a[:6]))
     want = _solver.mlgk_tangents(theta, ops, s, x, **kw)['rhs']
     assert got.shape[1] == 4 and torch.equal(got, want)
 
