@@ -39,6 +39,8 @@ Drives the port's paths once each through their public entry points,
   maximin reduction in torch on the card, and ``device_distance_fn``;
 - graphs from atoms: the QM7 surrogate's molecules through
   ``Graph.from_ase``, their Gram, MaxiMin, ``M3`` and ``KernelOverMetric``;
+  and from files, QM7 and QM9 files through the loaders of ``dataset`` to
+  a Gram;
 - the Tang & de Jong 2019 workflow: ``HierarchicalDrafter
   (VarianceMinimizer(kernel))`` picks a core of 128 from 896 molecules and
   ``LowRankApproximateGPR`` fits on it with L-BFGS-B, each evaluation a
@@ -295,6 +297,20 @@ and checks every part of them:
     from phase 17's adapted step size and mass, and a 3-stage
     ``smc_sample(mesh=...)`` of 8 particles, each bitwise equal to the
     unsharded call from the same seed; the phase within 90 s.
+23. from files to a Gram, run after phase 19: a ``qm7.mat`` at QM7's
+    published shapes (X 7165 x 23 x 23, Z 7165 x 23, R 7165 x 23 x 3, T
+    1 x 7165, P 5 x 1433), its rows the 100 surrogate molecules repeated
+    in order with their energies, through ``dataset.QM7(ase=True)``: every
+    row and fold back; ``load_qm7(real_path=...)`` reads it (source
+    'qm7.mat'); the normalized Gram of its first 1024 rows (phase 19's
+    kernel, factory route) bitwise equal to the Gram of the same molecules
+    from ``load_qm7()``, each entry within 1e-6 of ``edge``'s for its
+    pair of molecules, 1 within 1e-6 between two rows of one molecule; a
+    ``dsgdb9nsd``-style ``tar.bz2`` of 2048 records of the same geometries
+    through ``dataset.QM9(ase=True)``, the Gram of its first 256 molecules
+    within 1e-6 of ``edge``; the 150-300 class of phase 16 by kron, the
+    value Gram twice and the gradient Gram twice, and whether each pair of
+    runs is bitwise equal (printed, not checked).
 
 Prints each phase's wall as the next begins, and all of them with the
 script's wall so far as one JSON line (``phase_walls_s``, ``script_s``);
@@ -353,6 +369,11 @@ MAXIMIN_FN_CALLS, MAXIMIN_REPEATS, MAXIMIN_BRUTE = 10, 3, 16
 #: phase 19: the QM7 surrogate's molecules in the MaxiMin check and in the
 #: KernelOverMetric gradient check, and the step of its central differences
 ATOMS_MAXIMIN, ATOMS_KOM, ATOMS_FD_STEP = 32, 16, 1e-3
+#: phase 23: QM7's published shapes (molecules, atoms a row, folds), the
+#: rows whose Gram is taken; the QM9 records written and the molecules
+#: whose Gram is taken
+QM7_ROWS, QM7_ATOMS, QM7_FOLDS, QM7_GRAM = 7165, 23, 5, 1024
+QM9_RECORDS, QM9_GRAM = 2048, 256
 #: phase 20, the Tang & de Jong 2019 workflow with Nystrom: the pool
 #: random_molecule_set(seed, n, atoms) (bench.py's generator and atoms at 8
 #: times its count), its training part (the rest held out), the core, the
@@ -1940,6 +1961,211 @@ def atoms_phase():
     return gram_launches
 
 
+def write_qm7_mat(path, mols, energy, rng):
+    """A ``qm7.mat`` at QM7's published shapes: X [7165, 23, 23] Coulomb
+    matrices, Z [7165, 23] charges, R [7165, 23, 3] positions (0 beyond a
+    molecule's atoms), T [1, 7165] energies and P [5, 1433] folds (a seeded
+    permutation). Row i holds molecule i mod len(mols); R keeps float64, so
+    the loaded positions are the molecules' bits. Returns P."""
+    import scipy.io
+    n, a = QM7_ROWS, QM7_ATOMS
+    Z = np.zeros((len(mols), a), dtype=np.float32)
+    R = np.zeros((len(mols), a, 3))
+    X = np.zeros((len(mols), a, a), dtype=np.float32)
+    for i, m in enumerate(mols):
+        z, r = m.get_atomic_numbers(), m.get_positions()
+        Z[i, :len(z)], R[i, :len(z)] = z, r
+        d = np.linalg.norm(r[:, None] - r[None], axis=-1)
+        np.fill_diagonal(d, 1.0)
+        c = np.outer(z, z) / d
+        np.fill_diagonal(c, 0.5 * z ** 2.4)
+        X[i, :len(z), :len(z)] = c
+    rows = np.arange(n) % len(mols)
+    P = rng.permutation(n).reshape(QM7_FOLDS, n // QM7_FOLDS)
+    scipy.io.savemat(path, {'X': X[rows], 'Z': Z[rows], 'R': R[rows],
+                            'T': np.asarray(energy)[rows][None], 'P': P})
+    return P
+
+
+def write_qm9_archive(path, mols, rng):
+    """A ``dsgdb9nsd``-style ``tar.bz2`` of QM9_RECORDS records in the
+    layout of ``dataset.qm9._parse_record``: record r holds molecule r mod
+    len(mols) (coordinates to 1e-10, seeded Mulliken charges and scalars,
+    exponents written as the raw files' '*^')."""
+    import io
+    import tarfile
+    from graphdot_tpu_torch.dataset.qm9 import _NUMBERS
+    symbol = {z: s for s, z in _NUMBERS.items()}
+    with tarfile.open(path, 'w:bz2') as tf:
+        for r in range(QM9_RECORDS):
+            m = mols[r % len(mols)]
+            z, xyz = m.get_atomic_numbers(), m.get_positions()
+            q = rng.normal(scale=0.3, size=len(z))
+            props = [f'{v:.6E}'.replace('E', '*^')
+                     for v in rng.normal(size=15)]
+            lines = [str(len(z)), '\t'.join(['gdb', str(r + 1)] + props)]
+            lines += [f'{symbol[int(e)]}\t{x:.10f}\t{y:.10f}\t{w:.10f}\t'
+                      f'{c:.9f}' for e, (x, y, w), c in zip(z, xyz, q)]
+            lines += ['\t'.join(['100.0'] * max(1, 3 * len(z) - 6)),
+                      'C\tC', 'InChI=1S/x\tInChI=1S/x']
+            raw = ('\n'.join(lines) + '\n').encode()
+            info = tarfile.TarInfo(f'dsgdb9nsd_{r + 1:06d}.xyz')
+            info.size = len(raw)
+            tf.addfile(info, io.BytesIO(raw))
+
+
+def files_phase():
+    """Phase 23: from files to a Gram. A ``qm7.mat`` at QM7's published
+    shapes (the surrogate's 100 molecules repeated, :func:`write_qm7_mat`)
+    through ``dataset.QM7(ase=True)``, and ``load_qm7``'s real-file branch;
+    the normalized Gram of its first 1024 rows on the card (the kernel of
+    phase 19, factory route) bitwise equal to the Gram of the same
+    molecules from ``load_qm7()``, within 1e-6 of ``edge`` and 1 within
+    1e-6 between two rows of one molecule; a QM9 archive
+    (:func:`write_qm9_archive`) through ``dataset.QM9(ase=True)`` and the
+    Gram of its first 256 molecules within 1e-6 of ``edge``; then phase
+    16's 150-300 class by kron twice, value and gradient Gram, and whether
+    the two runs are bitwise equal (printed, not a check). Returns each
+    path's launches."""
+    import tempfile
+    import torch
+    from graphdot_tpu_torch.dataset import QM7, QM9
+    from graphdot_tpu_torch.dataset.qm7_fixture import load_qm7
+    from graphdot_tpu_torch.graph import Graph
+    from graphdot_tpu_torch.inference import GramFactory
+    from graphdot_tpu_torch.kernel import (
+        MarginalizedGraphKernel, Normalization)
+    from graphdot_tpu_torch.kernel.marginalized import _kron
+    from graphdot_tpu_torch.microkernel import (
+        KroneckerDelta, SquareExponential, TensorProduct)
+    from graphdot_tpu_torch.testing import random_protein_set
+
+    def make(backend='auto', length_scale=0.3, element=0.3):
+        """Phase 19's kernel (tests/test_qm7_parity.py's) on the card; with
+        length_scale 3.0 and element 0.2, bench_protein.py's."""
+        return MarginalizedGraphKernel(
+            TensorProduct(element=KroneckerDelta(element)),
+            TensorProduct(length=SquareExponential(length_scale)), q=0.05,
+            backend=backend, device='cuda')
+
+    def graphs_of(atoms):
+        return Graph.unify_datatype([Graph.from_ase(a, use_pbc=False)
+                                     for a in atoms])
+
+    rng = np.random.default_rng(23)
+    launches = {}
+    mols, energy, source = load_qm7()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'qm7.mat')
+        t0 = time.perf_counter()
+        P = write_qm7_mat(path, mols, energy, rng)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        table = QM7(local_filename=path, ase=True)
+        t_load = time.perf_counter() - t0
+        rows = np.arange(QM7_ROWS) % len(mols)
+        fold = np.empty(QM7_ROWS, dtype=int)
+        for f, members in enumerate(P):
+            fold[members] = f
+        same = all(
+            np.array_equal(a.get_atomic_numbers(),
+                           mols[r].get_atomic_numbers())
+            and np.array_equal(a.get_positions(), mols[r].get_positions())
+            for a, r in zip(table.atoms, rows))
+        check(source == 'surrogate' and len(table) == QM7_ROWS
+              and list(np.bincount(table.split)) == [QM7_ROWS // QM7_FOLDS]
+              * QM7_FOLDS and np.array_equal(table.split, fold)
+              and np.array_equal(table.atomization_energy, energy[rows])
+              and table.coulomb_matrix[0].shape == (QM7_ATOMS, QM7_ATOMS)
+              and same,
+              f'QM7(ase=True) of a qm7.mat at the published shapes (written '
+              f'in {t_write:.3f} s, loaded in {t_load:.3f} s): '
+              f'{len(table)} rows, {QM7_FOLDS} folds of '
+              f'{QM7_ROWS // QM7_FOLDS}, every row the surrogate molecule '
+              'and energy it was written from')
+        real = load_qm7(n=QM7_GRAM, real_path=path)
+        check(real[2] == 'qm7.mat' and len(real[0]) == QM7_GRAM
+              and np.array_equal(real[1], energy[rows[:QM7_GRAM]]),
+              f"load_qm7(real_path=...) reads the file: source "
+              f"'{real[2]}', {len(real[0])} molecules")
+
+        t0 = time.perf_counter()
+        graphs = graphs_of(table.atoms[:QM7_GRAM])
+        direct = graphs_of([mols[r] for r in rows[:QM7_GRAM]])
+        t_graphs = time.perf_counter() - t0
+        read = launch_counts()
+        t0 = time.perf_counter()
+        K = Normalization(make())(graphs)
+        torch.cuda.synchronize()
+        t_gram = time.perf_counter() - t0
+        launches['QM7 file Gram (23)'] = read()
+        K_direct = Normalization(make())(direct)
+        distinct = graphs_of(mols)
+        K_edge = Normalization(make('edge'))(distinct)[np.ix_(
+            rows[:QM7_GRAM], rows[:QM7_GRAM])]
+        err = float(np.abs(K - K_edge).max())
+        i = np.arange(QM7_GRAM - len(mols))
+        twin = float(np.abs(K[i, i + len(mols)] - 1).max())
+        check(np.isfinite(K).all() and K.tobytes() == K_direct.tobytes()
+              and err <= 1e-6 and twin <= 1e-6
+              and launches['QM7 file Gram (23)']['pcg_resident'] > 0,
+              f'the normalized Gram of the first {QM7_GRAM} rows on the card '
+              f'({t_graphs:.3f} s for both graph lists, the Gram '
+              f'{t_gram:.3f} s): bitwise equal to the Gram of the same '
+              f'molecules from load_qm7(); max |K - K_edge| {err:.3e} <= '
+              f'1e-6 (edge over the {len(mols)} distinct molecules, each '
+              f'entry that of its pair); max |K_ij - 1| {twin:.1e} <= 1e-6 '
+              f'where rows i, j hold one molecule; launches '
+              f'{launches["QM7 file Gram (23)"]}')
+
+        path = os.path.join(tmp, 'dsgdb9nsd.xyz.tar.bz2')
+        t0 = time.perf_counter()
+        write_qm9_archive(path, mols, rng)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qm9 = QM9(local_filename=path, ase=True)
+        t_load = time.perf_counter() - t0
+    rows = np.arange(QM9_RECORDS) % len(mols)
+    same = all(
+        np.array_equal(a.get_atomic_numbers(), mols[r].get_atomic_numbers())
+        and np.abs(a.get_positions() - mols[r].get_positions()).max()
+        <= 1e-9 for a, r in zip(qm9.atoms, rows))
+    check(len(qm9) == QM9_RECORDS and list(qm9.id) == list(
+        range(1, QM9_RECORDS + 1)) and same,
+        f'QM9(ase=True) of a tar.bz2 of {QM9_RECORDS} records (written in '
+        f'{t_write:.3f} s, loaded in {t_load:.3f} s): every record the '
+        'molecule it was written from, positions within 1e-9')
+    graphs = graphs_of(qm9.atoms[:QM9_GRAM])
+    read = launch_counts()
+    K = Normalization(make())(graphs)
+    launches['QM9 file Gram (23)'] = read()
+    K_edge = Normalization(make('edge'))(graphs)
+    err = float(np.abs(K - K_edge).max())
+    check(np.isfinite(K).all() and err <= 1e-6,
+          f'the normalized Gram of the first {QM9_GRAM} QM9 molecules on '
+          f'the card: max |K - K_edge| {err:.3e} <= 1e-6; launches '
+          f'{launches["QM9 file Gram (23)"]}')
+
+    label, seed, n, residues = PROTEIN_CLASSES[0]
+    fk = GramFactory(make('kron', 3.0, 0.2),
+                     random_protein_set(seed, n, residues), buckets=False)
+    theta0 = fk.theta0
+    read = launch_counts()
+    _kron.kron_pcg.launches = 0
+    runs = [fk.gram(theta0) for _ in range(2)]
+    grads = [fk.gram(theta0, eval_gradient=True) for _ in range(2)]
+    launches['kron repeats (23)'] = read()
+    value_equal = torch.equal(runs[0], runs[1])
+    grad_equal = all(torch.equal(a, b) for a, b in zip(*grads))
+    say(f'  kron route, class {label}, two runs each '
+        f'({_kron.kron_pcg.launches} kron solves): value Grams bitwise equal: {value_equal} (max '
+        f'|dK| {float((runs[0] - runs[1]).abs().max()):.3e}); gradient '
+        f'Grams bitwise equal: {grad_equal} (max |d dK| '
+        f'{float((grads[0][1] - grads[1][1]).abs().max()):.3e})')
+    launches['kron repeats (23)']['kron_pcg'] = _kron.kron_pcg.launches
+    return launches
+
+
 def models_kernel(backend='auto'):
     """The Tang-style normalized kernel of phases 20-21 on the card:
     ``KroneckerDelta(0.2)`` on element, ``SquareExponential(0.3)`` on
@@ -3368,6 +3594,10 @@ def main():
     say('== 19. graphs from atoms: the QM7 surrogate through from_ase')
     atoms_launches = atoms_phase()
 
+    say('== 23. from files to a Gram: QM7 and QM9 files through the loaders, '
+        'kron repeats')
+    files_launches = files_phase()
+
     say('== 20. the Tang & de Jong 2019 workflow with Nystrom: 1024 '
         'molecules, core 128')
     nystrom_launches = nystrom_phase()
@@ -3403,7 +3633,9 @@ def main():
                 **{f'{step} (21)': counts[name]
                    for step, counts in field_launches.items()},
                 **{f'{step} (22)': counts[name]
-                   for step, counts in parallel_launches.items()}}
+                   for step, counts in parallel_launches.items()},
+                **{step: counts[name]
+                   for step, counts in files_launches.items()}}
 
     def headline(row, rows):
         """A kernel's numbers on the summary line: those of its timed

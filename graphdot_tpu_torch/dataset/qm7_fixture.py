@@ -1,13 +1,12 @@
-"""Offline QM7 surrogate; counterpart of
+"""Offline QM7 access: the real archive when present, otherwise the
+committed surrogate fixture; a copy of
 ``graphdot_tpu/dataset/qm7_fixture.py``.
 
-``load_qm7`` reads ``tests/fixtures/qm7_surrogate.npz``: 100
-deterministic, valence-correct molecules (<= 7 heavy atoms of C/N/O/S + H)
-with force-field-relaxed geometries and bond-enthalpy atomization energies
-(``scripts/make_qm7_fixture.py``). What differs from the JAX module: the
-surrogate branch only. The JAX module switches to a real ``qm7.mat`` when
-one is present, through its ``dataset/qm7.py`` loader, which the port does
-not carry.
+``load_qm7`` reads a real ``qm7.mat`` through :func:`.qm7.QM7` when one
+exists at ``real_path``, and otherwise ``tests/fixtures/qm7_surrogate.npz``:
+100 deterministic, valence-correct molecules (<= 7 heavy atoms of C/N/O/S +
+H) with force-field-relaxed geometries and bond-enthalpy atomization
+energies (``scripts/make_qm7_fixture.py``).
 """
 import os
 
@@ -20,10 +19,18 @@ _FIXTURE = os.path.join(
     'qm7_surrogate.npz')
 
 
-def load_qm7(n=None, fixture_path=None):
+def load_qm7(n=None, real_path='qm7.mat', fixture_path=None):
     """(molecules, energies, source): the first ``n`` (default: all)
-    molecules of the surrogate as Atoms-like objects, their atomization
-    energies (kcal/mol) and the source, always ``'surrogate'``."""
+    molecules as Atoms-like objects, their atomization energies (kcal/mol)
+    and the source, ``'qm7.mat'`` or ``'surrogate'``."""
+    if os.path.exists(real_path):
+        from .qm7 import QM7
+        table = QM7(local_filename=real_path, ase=True)
+        if n is not None:
+            table = table.iloc[:n]
+        return (list(table.atoms), table.atomization_energy.to_numpy(),
+                'qm7.mat')
+
     path = fixture_path or _FIXTURE
     blob = np.load(path)
     offsets = blob['offsets']

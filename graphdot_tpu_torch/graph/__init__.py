@@ -2,10 +2,15 @@
 
 A copy of :mod:`graphdot_tpu.graph` (``Graph``, its frames, type inference
 and NetworkX converters), which the port carries so that it imports
-nothing of the JAX package. What differs from the original: ``Graph``
-has ``from_ase`` (:mod:`._from_ase`, with the adjacency rules of
-:mod:`.adjacency`) but no ``from_pymatgen``, ``from_smiles`` or
-``from_rdkit`` converters, and :func:`batch_graphs` packs with numpy only
+nothing of the JAX package. ``Graph`` has the JAX class's converters:
+``from_networkx``, ``from_ase`` (:mod:`._from_ase`, with the adjacency
+rules of :mod:`.adjacency`), ``from_rdkit`` (:mod:`._from_rdkit`, which
+imports ``rdkit`` only to read a molecule's bond block), ``from_pymatgen``
+(:mod:`._from_pymatgen`, through ``pymatgen.io.ase``) and ``from_smiles``,
+which raises as JAX's does. What differs from the original:
+``from_pymatgen`` hands ``use_pbc`` and ``adjacency`` to ``from_ase`` by
+keyword, where the JAX module's positional call puts them into the wrong
+parameters, and :func:`batch_graphs` packs with numpy only
 (:mod:`.batch`). Graphs of both packages are interchangeable: each
 package's batcher reads only ``nodes``, ``edges`` and ``cookie``.
 """
@@ -225,6 +230,27 @@ class Graph:
         as ``dataset._atoms.SimpleAtoms``) to a molecular graph."""
         from ._from_ase import _from_ase
         return _from_ase(cls, atoms, adjacency, use_charge, use_pbc)
+
+    @classmethod
+    def from_pymatgen(cls, molecule, use_pbc=True, adjacency='default'):
+        """Convert from a pymatgen molecule to a molecular graph."""
+        from ._from_pymatgen import _from_pymatgen
+        return _from_pymatgen(cls, molecule, use_pbc, adjacency)
+
+    @classmethod
+    def from_smiles(cls, smiles):
+        """DEPRECATED and replaced by from_rdkit."""
+        raise RuntimeError(
+            'from_smiles has been removed, use from_rdkit instead.')
+
+    @classmethod
+    def from_rdkit(cls, mol, title=None, bond_type='order',
+                   set_ring_list=True, set_ring_stereo=True):
+        """Convert an RDKit molecule to a graph."""
+        from ._from_rdkit import _from_rdkit
+        return _from_rdkit(cls, mol, title=title, bond_type=bond_type,
+                           set_ring_list=set_ring_list,
+                           set_ring_stereo=set_ring_stereo)
 
     def to_networkx(self):
         """Convert to a NetworkX ``Graph`` with all node and edge

@@ -181,8 +181,18 @@ def _packed_tangents(group, T, esrc1, edst1, esrc2, edst2, diag, precond,
     stride of 0). k is padded to a multiple of ``group`` with zero right-hand
     sides, which stay zero; every member has its pair's tol, and maxiter is
     scaled by the group size, as the JAX package's packing does. Returns
-    (x [P, k, N1, N2], iters [P * groups])."""
+    (x [P, k, N1, N2], iters [P * groups]).
+
+    The members of a group share their dot products and step sizes, so a
+    member whose right-hand side holds a NaN or inf would spoil the others.
+    Such a member is solved with a zero right-hand side, which adds exact
+    zeros to every shared sum, and its x is NaN: the other members get the
+    bits of the group where that member's right-hand side is zero, and a
+    non-finite direction stays in its own direction, as in the JAX
+    package's gradient."""
     P, k, N1, N2 = rhs.shape
+    bad = ~torch.isfinite(rhs).flatten(2).all(dim=2)
+    rhs = torch.where(bad[:, :, None, None], 0.0, rhs)
     n_groups = -(-k // group)
     pad = n_groups * group - k
     if pad:
@@ -201,7 +211,8 @@ def _packed_tangents(group, T, esrc1, edst1, esrc2, edst2, diag, precond,
                                  precond)),
         rhs.reshape(P * n_groups, group, N1, N2).contiguous(),
         tol.repeat_interleave(n_groups), min(maxiter * group, 16384))
-    return x.reshape(P, n_groups * group, N1, N2)[:, :k], iters
+    x = x.reshape(P, n_groups * group, N1, N2)[:, :k]
+    return torch.where(bad[:, :, None, None], float('nan'), x), iters
 
 
 def _stream_tangents(T, esrc1, edst1, esrc2, edst2, diag, precond, rhs, tol,

@@ -575,6 +575,36 @@ def test_tangent_route_on_the_card(card):
         _close(x, x_ref)
 
 
+@pytest.mark.parametrize('bad', [float('nan'), float('inf')])
+def test_tangent_route_keeps_a_non_finite_member_to_itself(card, bad):
+    """The tangent route's groups on the card with one member's right-hand
+    side non-finite in three pairs: that member's x is NaN, the other
+    members get the kernel's bits of the group with that member's
+    right-hand side zero, pairs without such a member the bits they get
+    alone, and all of them the twin's solution."""
+    operator, rhs, tol, maxiter = (lambda a: (a[:7], a[7], a[8], a[9]))(
+        _tangent_systems(card))
+    P, k = rhs.shape[:2]
+    solve = cuda_tangent_solver(k, *operator[0].shape[1:], *rhs.shape[2:],
+                                card)
+    hit = torch.tensor([0, 7, 19], device=card)
+    poisoned, zeroed = rhs.clone(), rhs.clone()
+    poisoned[hit, 3, 1, 2] = bad
+    zeroed[hit, 3] = 0.0
+    x, _ = solve(*operator, poisoned, tol, maxiter)
+    x_zeroed, _ = solve(*operator, zeroed, tol, maxiter)
+    x_clean, _ = solve(*operator, rhs, tol, maxiter)
+    x_ref, _ = solve(*(a.cpu() for a in operator), zeroed.cpu(), tol.cpu(),
+                     maxiter)
+    torch.cuda.synchronize()
+    assert torch.isnan(x[hit, 3]).all()
+    assert torch.equal(x[:, :3], x_zeroed[:, :3])
+    rest = torch.ones(P, dtype=torch.bool, device=card)
+    rest[hit] = False
+    assert torch.equal(x[rest], x_clean[rest])
+    _close(x[:, :3], x_ref[:, :3].to(card))
+
+
 def test_packed_group_beyond_shared_memory_raises(card):
     M, N, k = 128, 24, 8
     T = torch.zeros(1, k, M, M, device=card)

@@ -207,6 +207,36 @@ def test_tiny_length_scale_gradient_matches_jax_differences():
         assert float(grad[i]) == pytest.approx(fd, rel=0.05, abs=0.02), i
 
 
+#: TINY_LENGTH_THETA with log length scale -30.0 (1e-13): stepping log l
+#: down by 0.1 from there, the edge kernel's derivative first overflows
+#: between real bonds at -29.8 (finite gradient at -29.7); -30.0 is below
+NAN_LENGTH_THETA = (-2.2526717, -4.2657475, -1.0926995, -30.0)
+
+
+def test_overflow_between_real_bonds_stays_in_its_direction():
+    """Where the edge kernel's derivative overflows between real bonds,
+    JAX's gradient is NaN in the length scale's direction only, and so is
+    the port's: the packed tangent solve gives the non-finite direction a
+    zero right-hand side and a NaN x, so the other three directions share
+    no NaN step size. They match JAX's within 1e-3 max |grad| + 1e-5."""
+    G, Gj = graphs('port', 'gp'), graphs('jax', 'gp')
+    lp = GPRLogProb(port_kernel(), G, gp_targets(G), alpha=ALPHA)
+    lpj = JaxGPRLogProb(jax_kernel(), Gj, gp_targets(Gj), alpha=ALPHA)
+    t = np.array(NAN_LENGTH_THETA, dtype=np.float32)
+    logp, grad = lp.value_and_grad()(torch.from_numpy(t))
+    logp_want, grad_want = jax_value_and_grad(lpj, [t])
+    grad, grad_want = grad.numpy(), grad_want[0]
+    assert np.isfinite(float(logp)) and np.isfinite(logp_want).all()
+    np.testing.assert_allclose(float(logp), logp_want[0], rtol=1e-4,
+                               atol=1e-4)
+    ok = np.isfinite(grad_want)
+    assert ok.tolist() == [True, True, True, False]
+    np.testing.assert_array_equal(np.isfinite(grad), ok)
+    np.testing.assert_allclose(
+        grad[ok], grad_want[ok], rtol=0,
+        atol=1e-3 * np.abs(grad_want[ok]).max() + 1e-5)
+
+
 def test_gram_matches_normalization():
     lp = logprob('port')
     K = lp.factory.gram(lp.theta0).numpy()

@@ -19,12 +19,12 @@ from graphdot_tpu.testing import random_molecule_set  # noqa: E402
 
 from graphdot_tpu_torch.kernel import MarginalizedGraphKernel  # noqa: E402
 from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
-    mlgk_setup)
+    _packed_tangents, mlgk_setup, mlgk_tangents)
 from graphdot_tpu_torch.microkernel import (  # noqa: E402
     KroneckerDelta, SquareExponential, TensorProduct)
 from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
-    edge_segments, gather_offdiag, offdiag_operator, pcg_resident,
-    pcg_resident_reference)
+    edge_segments, gather_offdiag, offdiag_operator, pcg_packed_reference,
+    pcg_resident, pcg_resident_reference)
 
 
 def molecule_systems():
@@ -193,6 +193,62 @@ def test_tangent_rhs_real_edge_lists_equal_scanned_lists(batched,
                         lambda *a: plain(*a[:6]))
     want = _solver.mlgk_tangents(theta, ops, s, x, **kw)['rhs']
     assert got.shape[1] == 4 and torch.equal(got, want)
+
+
+def tangent_systems():
+    """(operator of pcg_resident, the n_theta = 4 tangent right-hand sides
+    [P, 4, N1, N2] at the value solution, gtol, maxiter) for the 21 pairs
+    of :func:`molecule_systems`'s molecules."""
+    graphs = random_molecule_set(11, 6, n_atoms_range=(5, 14))
+    kernel = MarginalizedGraphKernel(
+        TensorProduct(element=KroneckerDelta(0.2)),
+        TensorProduct(length=SquareExponential(0.3)), q=0.05,
+        backend='cuda', device='cpu')
+    batch, bd, _ = kernel._prepare_batch(graphs)
+    i, j = np.triu_indices(len(graphs))
+    ops = kernel._operands(bd, bd, torch.as_tensor(i), torch.as_tensor(j))
+    theta = kernel._theta_vector()
+    kw = dict(knode=kernel.node_kernel, kedge=kernel.edge_kernel,
+              n_p_theta=1, mode='cuda')
+    s = mlgk_setup(theta, ops, **kw)
+    operator = [s[f].contiguous() for f in (
+        'T', 'esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'diag', 'precond')]
+    maxiter = kernel.maxiter(batch.node_mask.shape[1])
+    x, _ = pcg_resident_reference(*operator, s['b'].contiguous(), s['tol'],
+                                  maxiter)
+    rhs = mlgk_tangents(theta, ops, s, x, **kw)['rhs'].contiguous()
+    return operator, rhs, s['gtol'].contiguous(), maxiter
+
+
+@pytest.mark.parametrize('bad', [float('nan'), float('inf')])
+def test_packed_tangents_keep_a_non_finite_member_to_itself(bad):
+    """A pair's 4 tangent systems run as one group of ``pcg_packed``'s
+    plain twin, whose members share their step sizes. Where one member's
+    right-hand side holds a NaN or inf, that member's x is NaN and the
+    other members get the bits of the group with that member's right-hand
+    side zero; pairs without such a member get the bits they get alone.
+    The finite members also match the group of the other three within the
+    kernels' contract (1e-5 max |x|)."""
+    operator, rhs, tol, maxiter = tangent_systems()
+    P, k = rhs.shape[:2]
+    hit = torch.tensor([0, 5, 20])
+    poisoned, zeroed = rhs.clone(), rhs.clone()
+    poisoned[hit, 3, 1, 2] = bad
+    zeroed[hit, 3] = 0.0
+    x, _ = _packed_tangents(k, *operator, poisoned, tol, maxiter)
+    x_zeroed, _ = _packed_tangents(k, *operator, zeroed, tol, maxiter)
+    x_clean, _ = _packed_tangents(k, *operator, rhs, tol, maxiter)
+    assert torch.isnan(x[hit, 3]).all()
+    assert torch.equal(x[:, :3], x_zeroed[:, :3])
+    rest = torch.ones(P, dtype=torch.bool)
+    rest[hit] = False
+    assert torch.equal(x[rest], x_clean[rest])
+    assert torch.isfinite(x[rest]).all() and torch.isfinite(x[:, :3]).all()
+    three, _ = pcg_packed_reference(
+        *(a[hit, None] for a in operator), rhs[hit, :3].contiguous(),
+        tol[hit], maxiter * 3)
+    scale = float(three.abs().max())
+    assert float((x[hit, :3] - three).abs().max()) <= 1e-5 * scale
 
 
 def test_reference_stop_rules():

@@ -78,6 +78,11 @@ def test_port_imports_nothing_of_the_jax_package():
         'import graphdot_tpu_torch.experimental\n'
         'import graphdot_tpu_torch.graph.adjacency\n'
         'import graphdot_tpu_torch.dataset\n'
+        'from graphdot_tpu_torch.dataset import (\n'
+        '    get, QM7, QM9, AMES, METLIN_SMRT)\n'
+        'from graphdot_tpu_torch.graph._from_rdkit import _from_rdkit\n'
+        'from graphdot_tpu_torch.graph._from_pymatgen import (\n'
+        '    _from_pymatgen)\n'
         'from graphdot_tpu_torch.metric import (\n'
         '    MaxiMin, KernelInducedDistance)\n'
         'from graphdot_tpu_torch.experimental.metric import M3\n'
@@ -295,16 +300,54 @@ def test_kernel_runs_on_the_cpu_when_asked():
 
 
 def test_graph_copy_carries_no_converters_of_the_jax_package():
-    """The copy carries ``from_ase`` (numpy and scipy only; duck-typed
-    atoms) and none of the converters that need pymatgen or RDKit;
-    NetworkX round trips."""
-    assert callable(Graph.from_ase)
-    for name in ('from_pymatgen', 'from_smiles', 'from_rdkit'):
-        assert not hasattr(Graph, name)
+    """The copy carries every converter of the JAX class, each its own
+    copy and none the JAX package's: ``from_ase`` (numpy and scipy only;
+    duck-typed atoms), ``from_rdkit``, ``from_pymatgen`` and
+    ``from_smiles``, which raises as JAX's does; NetworkX round trips."""
+    import graphdot_tpu.graph as jax_graph
+    for name in ('from_networkx', 'from_ase', 'from_pymatgen',
+                 'from_smiles', 'from_rdkit'):
+        method = getattr(Graph, name)
+        assert callable(method), name
+        assert method.__func__.__module__ == 'graphdot_tpu_torch.graph'
+        assert method.__func__ is not getattr(jax_graph.Graph,
+                                              name).__func__
+    with pytest.raises(RuntimeError, match='from_rdkit'):
+        Graph.from_smiles('CCO')
     g = port_testing.random_molecule_set(1, 1, (5, 8))[0]
     h = Graph.from_networkx(g.to_networkx())
     assert len(h.nodes) == len(g.nodes) and len(h.edges) == len(g.edges)
     assert graphdot_tpu_torch.Graph is Graph
+
+
+#: the optional packages that the port imports only inside the functions
+#: that need them, as the JAX package does
+OPTIONAL = ('requests', 'rdkit', 'pymatgen', 'ase', 'pandas')
+
+
+def test_port_imports_no_optional_package():
+    """In a fresh interpreter, ``import graphdot_tpu_torch`` and then every
+    module of the port (the dataset loaders and the graph converters
+    among them) loads none of the optional packages."""
+    code = (
+        'import importlib, pkgutil, sys\n'
+        f'optional = {OPTIONAL!r}\n'
+        'def loaded():\n'
+        '    return sorted(m for m in sys.modules\n'
+        '                  if m.split(".")[0] in optional)\n'
+        'import graphdot_tpu_torch\n'
+        'assert not loaded(), loaded()\n'
+        'for m in pkgutil.walk_packages(graphdot_tpu_torch.__path__,\n'
+        '                               "graphdot_tpu_torch."):\n'
+        '    importlib.import_module(m.name)\n'
+        'from graphdot_tpu_torch.dataset import (\n'
+        '    get, QM7, QM9, AMES, METLIN_SMRT)\n'
+        'assert not loaded(), loaded()\n'
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_package_data_ships_every_kernel_source_and_include():
