@@ -13,11 +13,14 @@ Drives the port's paths once each through their public entry points,
   contact-map proteins of ``bench_protein.py`` (180-280 residues, 21 pairs
   padded to n = 272 nodes and m = 3736 edges), whose pairs do not fit and
   run in the CUDA kernel ``pcg_stream``;
+- the mid-size pairs, beyond a block but within a thread-block cluster
+  of at most 16 CTAs (molecules of 48-72 atoms, QM7's molecules of up to
+  352 edges), in the CUDA kernel ``pcg_cluster``, one system a cluster;
 - the gradient slice, the same molecule Gram with ``eval_gradient=True``
   (d K / d theta for p, q, h and the length scale), whose tangent systems
   run in the CUDA kernel ``pcg_packed``, the 4 tangents of a pair as one
   group; and the gradient of 48-72-atom molecules, whose tangents run in
-  ``pcg_stream``;
+  ``pcg_cluster``, the tangents of a chunk in one launch;
 - the factory route: non-nodal calls of 512 jobs or more (the 128-molecule
   Grams above) run through a ``GramFactory`` cached by the kernel, which
   packs the graphs once, by size class (9-24 atoms: the classes 16 and 24);
@@ -54,7 +57,7 @@ Drives the port's paths once each through their public entry points,
 and checks every part of them:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the build of the three kernels from ``graphdot_tpu_torch/csrc``, one
+2. the build of the four kernels from ``graphdot_tpu_torch/csrc``, one
    ``nvcc`` a source, started together;
 3. ``pcg_resident`` against its plain PyTorch twin on the systems of every
    value chunk of the main path: the plan of the factory that the kernel
@@ -83,22 +86,37 @@ and checks every part of them:
    runs at the default C bitwise equal, and against ``pcg_resident`` on
    the first 512 pairs of the (24, 24) molecule chunk: max |dx| <= 1e-5 *
    max |x| for all;
+24. (run after 6) ``pcg_cluster`` on the mid-size chunks as the main path
+    builds them (phase 8's 56-63 and 48-71-atom molecules, one batch each;
+    the first chunk of the QM7 Gram's factory group of m = 352, phase 23):
+    at every cluster size K of 2, 4, 8, 16 that holds the chunk and that
+    the card schedules, max |dx| <= 1e-5 * max |x| of the twin and two
+    runs bitwise equal; the 4 tangents of 64 of the 48-71-atom pairs as
+    one launch naming each pair's operator (``op``), against the twin, and
+    ``_cluster_tangents`` the same bits; a protein pair of the JAX fixture
+    (5.2 MB of T) fits no cluster: the route names ``'stream'`` and
+    ``pcg_cluster`` raises;
 7. the normalized protein Gram with ``backend='cuda'``: finite, symmetric,
    unit diagonal; ``pcg_stream`` launched once per chunk and
-   ``pcg_resident`` never; within 1e-5 of ``backend='edge'`` on the card
+   ``pcg_resident`` and ``pcg_cluster`` never; within 1e-5 of ``backend='edge'`` on the card
    (float32 sums over 7.4e4 product nodes run in other orders there than
    over the molecules' 576, hence 1e-5 and not 1e-6);
 8. the boundary, on the per-pair route (``GRAPHDOT_API_UNION=0``: one
    batch padded to the largest graph): the Gram over the small protein set
    of the JAX fixture
    ``tests/fixtures/torch_port_protein_ref.npz`` (pairs of 5.2 MB of T)
-   runs in ``pcg_stream`` and is within 1e-6 of the JAX Gram; 32 molecules
-   of 48-72 atoms (n = 72, m = 192, over 227 KB a pair) run in
-   ``pcg_stream`` and are within 1e-6 of ``backend='edge'``; 32 molecules
-   of 48-55 atoms (n = 56, the most product nodes a block of
+   runs in ``pcg_stream`` only and is within 1e-6 of the JAX Gram; 32
+   molecules of 48-72 atoms (n = 72, over 227 KB a pair) run in
+   ``pcg_cluster`` only and are within 1e-6 of ``backend='edge'``; 32
+   molecules of 48-55 atoms (n = 56, the most product nodes a block of
    ``pcg_resident`` holds) run in ``pcg_resident``, and 32 of 56-63 atoms
-   (n = 64) in ``pcg_stream``, both within 1e-6 of ``backend='edge'``;
-9. timings with CUDA events, in turns (C = 1, default, default, C = 1):
+   (n = 64) in ``pcg_cluster``, both within 1e-6 of ``backend='edge'``;
+9. ``pcg_cluster`` against ``pcg_stream`` (forced, default C) on the
+   56-63-atom chunk and the QM7 chunk of phase 24, in turns (stream,
+   cluster, cluster, stream) by CUDA events and by device time, the twin,
+   the CG steps, each call's kernel launches, the bound, and
+   ``pcg_cluster``'s prologue and cost a step; timings with CUDA events,
+   in turns (C = 1, default, default, C = 1):
    ``pcg_stream`` on one protein chunk and on a lone protein pair, beside
    the twin on both; ``pcg_stream`` and ``pcg_resident`` on the (24, 24)
    molecule chunk, the CG steps of both; the protein Gram's wall time per
@@ -120,8 +138,8 @@ and checks every part of them:
     ``tests/fixtures/torch_port_grad_ref.npz``; central differences in
     log theta (step 1e-3) within rtol 0.05, atol 0.05;
 12. on the per-pair route, the gradient of the 32 molecules of 48-72
-    atoms: tangents in
-    ``pcg_stream``, ``pcg_packed`` never; of the 48-55-atom ones: value
+    atoms: values and tangents in ``pcg_cluster`` only; of the 48-55-atom
+    ones: value
     and tangents (one a CTA) in ``pcg_resident`` only; dK within phase
     11's tolerance of ``edge`` for both;
 13. timings: ``pcg_packed`` and its twin on the tangent groups of the
@@ -183,8 +201,10 @@ and checks every part of them:
     turns, and a control: the kron products with TF32 on must miss
     ``KRON_LIMIT`` on K; then the sets of ``ROUTE_LADDER`` below the
     classes (phase 8's 48-72-atom molecules, proteins of 40-64 to 150-290
-    residues), each by both routes and ``'auto'``, agreement, launches and
-    value walls in turns, where ``KRON_MIN_N``'s crossover lies; the JAX
+    residues), each by kron, by the edge route of mode ``'cuda'`` (the rule
+    names ``pcg_cluster`` for the sets that fit a cluster, ``pcg_stream``
+    for the others) and ``'auto'``, agreement, launches and value walls in
+    turns, where ``KRON_MIN_N``'s crossover lies; the JAX
     kron fixture ``tests/fixtures/torch_port_kron_ref.npz`` within 1e-4
     (K) and 5e-3 (dK), the JAX tests' tolerances;
 17. the NUTS path of ``bench_nuts.py`` at full width
@@ -238,7 +258,9 @@ and checks every part of them:
     (``dataset.qm7_fixture.load_qm7``) through ``Graph.from_ase(m,
     use_pbc=False)``; their normalized Gram (the kernel of
     ``tests/test_qm7_parity.py``, factory route) finite, symmetric, of unit
-    diagonal and within 1e-6 of ``edge``; MaxiMin over the first 32 within
+    diagonal and within 1e-6 of ``edge``, in ``pcg_resident`` and
+    ``pcg_cluster`` (up to 352 edges a graph), ``pcg_stream`` never;
+    MaxiMin over the first 32 within
     the D limit of ``edge``; ``M3`` on the card for three pairs: its
     kernel's nodal R within rtol 1e-4, atol 1e-5 of its scipy solve, the
     distance within the D limit of the scipy route's;
@@ -305,7 +327,8 @@ and checks every part of them:
     'qm7.mat'); the normalized Gram of its first 1024 rows (phase 19's
     kernel, factory route) bitwise equal to the Gram of the same molecules
     from ``load_qm7()``, each entry within 1e-6 of ``edge``'s for its
-    pair of molecules, 1 within 1e-6 between two rows of one molecule; a
+    pair of molecules, 1 within 1e-6 between two rows of one molecule,
+    ``pcg_resident`` and ``pcg_cluster`` launched, ``pcg_stream`` never; a
     ``dsgdb9nsd``-style ``tar.bz2`` of 2048 records of the same geometries
     through ``dataset.QM9(ase=True)``, the Gram of its first 256 molecules
     within 1e-6 of ``edge``; the 150-300 class of phase 16 by kron, the
@@ -388,6 +411,10 @@ MODELS_FIXTURE = ROOT / 'tests' / 'fixtures' / 'torch_port_models_ref.npz'
 OUTLIER_SET, OUTLIER_SEED = (42, 128, (9, 24)), 5
 OUTLIERS, OUTLIER_SHIFT, OUTLIER_W = 4, 50.0, 0.5
 GFR_SEED, GFR_SIGMA = 7, 0.5
+#: phase 8's mid-size molecules, random_molecule_set(seed, n, atoms): the
+#: first set's chunk is timed in phase 9, both are held to the twin in 24
+MIDSIZE_MOLECULES = ((7, 32, (56, 64)), (7, 32, (48, 72)))
+CLUSTER_REPEATS = 10  # timed calls of each kernel on a mid-size chunk
 N_COMPARE = 512       # pairs in the kernel-vs-twin comparison
 BUILD_REPEATS = 5     # timed molecule Gram builds
 PROTEIN_REPEATS = 3   # timed protein Gram builds
@@ -683,9 +710,10 @@ def gp_phase(graphs, held, make_kernel):
     from graphdot_tpu_torch.model.gaussian_process import (
         GaussianProcessRegressor)
     from graphdot_tpu_torch.model.gaussian_process import _objectives as obj
-    from graphdot_tpu_torch.ops.pcg import pcg_packed, pcg_resident, pcg_stream
+    from graphdot_tpu_torch.ops.pcg import (
+        pcg_cluster, pcg_packed, pcg_resident, pcg_stream)
 
-    counters = (pcg_resident, pcg_packed, pcg_stream)
+    counters = (pcg_resident, pcg_packed, pcg_stream, pcg_cluster)
     y = gp_targets(graphs)
     model = GaussianProcessRegressor(
         Normalization(make_kernel()), alpha=GP_ALPHA, normalize_y=True,
@@ -854,13 +882,17 @@ def kron_phase():
     from graphdot_tpu_torch.kernel.marginalized._solver import mlgk_setup
     from graphdot_tpu_torch.microkernel import (
         KroneckerDelta, SquareExponential, TensorProduct)
-    from graphdot_tpu_torch.ops.pcg import (pcg_packed, pcg_resident,
-                                            pcg_stream, pcg_stream_reference)
+    from graphdot_tpu_torch.ops.pcg import (pcg_cluster, pcg_packed,
+                                            pcg_resident, pcg_stream,
+                                            pcg_stream_reference)
     from graphdot_tpu_torch.testing import (random_molecule_set,
                                             random_protein_set)
 
     counters = {'pcg_resident': pcg_resident, 'pcg_packed': pcg_packed,
-                'pcg_stream': pcg_stream, 'kron': _kron.kron_pcg}
+                'pcg_stream': pcg_stream, 'pcg_cluster': pcg_cluster,
+                'kron': _kron.kron_pcg}
+    #: the kernel of each edge-form route of mode 'cuda' beyond a block
+    edge_kernel = {'stream': 'pcg_stream', 'cluster': 'pcg_cluster'}
 
     def kern(backend, length_scale=3.0):
         """bench_protein.py:125-130's kernel (the molecules' length scale
@@ -964,7 +996,7 @@ def kron_phase():
         named = fa._plan.route(fa._plan.groups[0])
         K_auto, launches = counted(lambda: fa.gram(theta0))
         ran = [k for k, v in launches.items() if v]
-        check(ran == [{'kron': 'kron', 'stream': 'pcg_stream'}[named]],
+        check(ran == [{'kron': 'kron', **edge_kernel}[named]],
               f"backend 'auto': the rule names {named} (KRON_MIN_N = "
               f'{_solver.KRON_MIN_N}, n1 n2 = {n_pad * n_pad}), and '
               f'{ran} launched')
@@ -1134,21 +1166,22 @@ def kron_phase():
         fa = GramFactory(kern('auto', scale), graphs, buckets=False)
         grp = fk._plan.groups[0]
         n_pad, plan = grp['n1'], fk._plan.kron
-        check(fs._plan.route(fs._plan.groups[0]) == 'stream'
-              and fk._plan.route(grp) == 'kron',
+        edge_route = fs._plan.route(fs._plan.groups[0])
+        ran_edge = edge_kernel.get(edge_route)
+        check(ran_edge is not None and fk._plan.route(grp) == 'kron',
               f'{label}: {len(graphs)} graphs padded to n = {n_pad}, m = '
               f"{grp['m_pad']}; kron ranks {plan.ranks}, factorization error "
-              f'{plan.err:.3e}; the routes stream and kron')
+              f'{plan.err:.3e}; the routes {edge_route} and kron')
         K_kron, launches = counted(lambda: fk.gram(fk.theta0))
         check(launches['kron'] >= 1 and all(
             v == 0 for k, v in launches.items() if k != 'kron'),
             f'kron route: {launches}')
         K_stream, launches = counted(lambda: fs.gram(fs.theta0))
-        check(launches['pcg_stream'] >= 1 and all(
-            v == 0 for k, v in launches.items() if k != 'pcg_stream'),
-            f'stream route: {launches}')
+        check(launches[ran_edge] >= 1 and all(
+            v == 0 for k, v in launches.items() if k != ran_edge),
+            f'{edge_route} route: {launches}')
         K_kron = check_gram(K_kron, f'{label} kron')
-        K_stream = check_gram(K_stream, f'{label} pcg_stream')
+        K_stream = check_gram(K_stream, f'{label} {ran_edge}')
         err = float(np.abs(K_kron - K_stream).max())
         if plan.err <= _kron.ACCURACY_LIMIT:
             check(err <= KRON_LIMIT,
@@ -1160,24 +1193,25 @@ def kron_phase():
         K_auto, launches = counted(lambda: fa.gram(fa.theta0))
         ran = [k for k, v in launches.items() if v]
         auto_err = float(np.abs(K_auto.cpu().numpy() - K_stream).max())
-        check(ran == [{'kron': 'kron', 'stream': 'pcg_stream'}[named]]
+        check(ran == [{'kron': 'kron', **edge_kernel}[named]]
               and auto_err <= KRON_LIMIT,
               f"backend 'auto': the rule names {named} (n1 n2 = "
               f'{n_pad * n_pad}), {ran} launched, max |K - K_stream| = '
               f'{auto_err:.3e} <= {KRON_LIMIT}')
         say('  value Gram walls, in turns:')
         w, w_all = walls({'kron': lambda: fk.gram(fk.theta0),
-                          'pcg_stream': lambda: fs.gram(fs.theta0)},
+                          ran_edge: lambda: fs.gram(fs.theta0)},
                          KRON_REPEATS)
         ladder.append({'class': label, 'graphs': len(graphs),
                        'n_pad': n_pad, 'm_pad': grp['m_pad'],
                        'n1n2': n_pad * n_pad, 'ranks': list(plan.ranks),
                        'factorization_error': plan.err,
                        'kron_wall_ms': w['kron'],
-                       'stream_wall_ms': w['pcg_stream'],
+                       'stream_wall_ms': w[ran_edge],
                        'kron_walls_ms': w_all['kron'],
-                       'stream_walls_ms': w_all['pcg_stream'],
-                       'max_abs_err': err, 'auto_route': named})
+                       'stream_walls_ms': w_all[ran_edge],
+                       'max_abs_err': err, 'auto_route': named,
+                       'edge_route': edge_route})
         del fk, fs, fa
         torch.cuda.empty_cache()
 
@@ -1198,29 +1232,33 @@ def kron_phase():
 
     def faster(r):
         """The route whose every timed build beat every build of the
-        other; None where they overlap (a tie, which the host's spread of
-        the small sets' walls makes common near the crossover)."""
+        other (kron, or the set's edge route of mode 'cuda': stream or
+        cluster); None where they overlap (a tie, which the host's spread
+        of the small sets' walls makes common near the crossover)."""
         k, s = r['kron_walls_ms'], r['stream_walls_ms']
         if max(k) < min(s):
             return 'kron'
-        return 'stream' if max(s) < min(k) else None
+        return r.get('edge_route', 'stream') if max(s) < min(k) else None
 
     # KRON_MIN_N sits below every set where kron was faster and at or
-    # above every set where pcg_stream was; a tie agrees with either side
+    # above every set where the edge route was; a tie agrees with either
+    # side. Sets on the cluster route re-measure the crossover against
+    # pcg_cluster
     sets = ladder + rows
     wins = [r['n1n2'] for r in sets if faster(r) == 'kron']
-    losses = [r['n1n2'] for r in sets if faster(r) == 'stream']
+    losses = [r['n1n2'] for r in sets if faster(r) not in ('kron', None)]
     chosen = _solver.KRON_MIN_N
     line = {'kron_min_n': {
         'chosen': chosen,
         'kron_faster_from_n1n2': min(wins) if wins else None,
-        'stream_faster_up_to_n1n2': max(losses) if losses else None,
+        'edge_route_faster_up_to_n1n2': max(losses) if losses else None,
         'ties_n1n2': [r['n1n2'] for r in sets if faster(r) is None],
         'agrees_with_this_run': all(n > chosen for n in wins)
         and all(n <= chosen for n in losses),
         'walls_ms': [{'set': r['class'], 'n1n2': r['n1n2'],
                       'm_pad': r['m_pad'], 'kron': r['kron_wall_ms'],
-                      'pcg_stream': r['stream_wall_ms'],
+                      'edge_route': r.get('edge_route', 'stream'),
+                      'edge_route_ms': r['stream_wall_ms'],
                       'faster': faster(r)} for r in sets]}}
     return rows, stream_launches, line
 
@@ -1295,11 +1333,11 @@ def nuts_phase(warmup=NUTS_WARMUP, draws=NUTS_DRAWS):
     from graphdot_tpu_torch.microkernel import (
         KroneckerDelta, SquareExponential, TensorProduct)
     from graphdot_tpu_torch.ops.pcg import (
-        pcg_packed, pcg_packed_reference, pcg_resident,
+        pcg_cluster, pcg_packed, pcg_packed_reference, pcg_resident,
         pcg_resident_reference, pcg_stream)
     from graphdot_tpu_torch.testing import random_molecule_set
 
-    counters = (pcg_resident, pcg_packed, pcg_stream)
+    counters = (pcg_resident, pcg_packed, pcg_stream, pcg_cluster)
     card = nvidia_smi()
     ref = np.load(NUTS_FIXTURE)
 
@@ -1636,11 +1674,11 @@ def maximin_phase():
     from graphdot_tpu_torch.microkernel import (
         KroneckerDelta, SquareExponential, TensorProduct)
     from graphdot_tpu_torch.ops.pcg import (
-        pcg_packed, pcg_packed_reference, pcg_resident,
+        pcg_cluster, pcg_packed, pcg_packed_reference, pcg_resident,
         pcg_resident_reference, pcg_stream)
     from graphdot_tpu_torch.testing import random_molecule_set
 
-    counters = (pcg_resident, pcg_packed, pcg_stream)
+    counters = (pcg_resident, pcg_packed, pcg_stream, pcg_cluster)
     card = nvidia_smi()
 
     def launches():
@@ -1672,7 +1710,7 @@ def maximin_phase():
     torch.cuda.synchronize()
     value_launches = launches()
     check(value_launches == {'pcg_resident': own + value, 'pcg_packed': 0,
-                             'pcg_stream': 0},
+                             'pcg_stream': 0, 'pcg_cluster': 0},
           f'metric(graphs) launched {value_launches}: pcg_resident once a '
           f'self and a value chunk ({own} + {value}), nothing else')
     check(D.shape == (count, count) and np.isfinite(D).all()
@@ -1695,7 +1733,7 @@ def maximin_phase():
     torch.cuda.synchronize()
     fn_launches = launches()
     check(fn_launches == {'pcg_resident': value, 'pcg_packed': 0,
-                          'pcg_stream': 0},
+                          'pcg_stream': 0, 'pcg_cluster': 0},
           f'device_distance_fn launched {fn_launches}: pcg_resident once a '
           f'value chunk ({value}), nothing else')
     D_fn = D_fn.cpu().numpy()
@@ -1738,7 +1776,8 @@ def maximin_phase():
     torch.cuda.synchronize()
     grad_launches = launches()
     check(grad_launches == {'pcg_resident': own_grad + value + hot,
-                            'pcg_packed': own_grad + hot, 'pcg_stream': 0},
+                            'pcg_packed': own_grad + hot, 'pcg_stream': 0,
+                            'pcg_cluster': 0},
           f'metric(graphs, eval_gradient=True) launched {grad_launches}: '
           f'pcg_resident once a self, value and hotspot chunk ({own_grad} + '
           f'{value} + {hot}), pcg_packed once a self and hotspot chunk')
@@ -1867,9 +1906,9 @@ def atoms_phase():
     from graphdot_tpu_torch.microkernel import (
         KroneckerDelta, SquareExponential, TensorProduct)
     from graphdot_tpu_torch.ops.pcg import (
-        pcg_packed, pcg_resident, pcg_stream)
+        pcg_cluster, pcg_packed, pcg_resident, pcg_stream)
 
-    counters = (pcg_resident, pcg_packed, pcg_stream)
+    counters = (pcg_resident, pcg_packed, pcg_stream, pcg_cluster)
 
     def make(cls=MarginalizedGraphKernel, backend='auto'):
         """The kernel of tests/test_qm7_parity.py on the card."""
@@ -1899,7 +1938,9 @@ def atoms_phase():
     diag = float(np.abs(np.diag(K) - 1).max())
     check(np.isfinite(K).all() and diag <= 1e-6 and sym <= 1e-12
           and err <= 1e-6
-          and gram_launches['pcg_resident'] + gram_launches['pcg_stream'] > 0,
+          and gram_launches['pcg_resident'] > 0
+          and gram_launches['pcg_cluster'] > 0
+          and gram_launches['pcg_stream'] == 0,
           f'the normalized Gram [{len(graphs)}, {len(graphs)}] finite, '
           f'symmetric (max |K - K^T| {sym:.1e} <= 1e-12), unit diagonal (max '
           f'|K_ii - 1| {diag:.1e} <= 1e-6); max |K - K_edge| {err:.3e} <= '
@@ -2108,7 +2149,9 @@ def files_phase():
         twin = float(np.abs(K[i, i + len(mols)] - 1).max())
         check(np.isfinite(K).all() and K.tobytes() == K_direct.tobytes()
               and err <= 1e-6 and twin <= 1e-6
-              and launches['QM7 file Gram (23)']['pcg_resident'] > 0,
+              and launches['QM7 file Gram (23)']['pcg_resident'] > 0
+              and launches['QM7 file Gram (23)']['pcg_cluster'] > 0
+              and launches['QM7 file Gram (23)']['pcg_stream'] == 0,
               f'the normalized Gram of the first {QM7_GRAM} rows on the card '
               f'({t_graphs:.3f} s for both graph lists, the Gram '
               f'{t_gram:.3f} s): bitwise equal to the Gram of the same '
@@ -2180,12 +2223,293 @@ def models_kernel(backend='auto'):
         backend=backend, device='cuda'))
 
 
+def midsize_chunks():
+    """The mid-size chunks that the cluster route takes from ``pcg_stream``,
+    built as the main path builds them: (a) phase 8's 32 molecules of 56-63
+    atoms and (phase 24's twin checks only) of 48-71 atoms
+    (``MIDSIZE_MOLECULES``, phase 2's kernel and theta) on the per-pair
+    route, one batch, the first chunk of its 528 jobs; (b) phase 23's
+    normalized Gram of ``QM7_GRAM`` QM7 rows (the surrogate's molecules
+    repeated, phase 19's kernel): the first chunk of the factory group
+    beyond a block with the largest T (352 edges a side). Returns {name:
+    the PCG
+    wrappers' operands, maxiter last}, (a) and (b) first."""
+    import torch
+    from graphdot_tpu_torch.convert import hyperparameters_from_numpy
+    from graphdot_tpu_torch.dataset.qm7_fixture import load_qm7
+    from graphdot_tpu_torch.graph import Graph
+    from graphdot_tpu_torch.kernel import MarginalizedGraphKernel
+    from graphdot_tpu_torch.kernel.marginalized._solver import mlgk_setup
+    from graphdot_tpu_torch.microkernel import (
+        KroneckerDelta, SquareExponential, TensorProduct)
+    from graphdot_tpu_torch.ops.pcg import resident_fits
+    from graphdot_tpu_torch.testing import random_molecule_set
+
+    def kernel(element):
+        return MarginalizedGraphKernel(
+            TensorProduct(element=KroneckerDelta(element)),
+            TensorProduct(length=SquareExponential(0.3)), q=0.05,
+            device='cuda')
+
+    def operands(kern, bd1, bd2, idx1, idx2, maxiter):
+        s = mlgk_setup(kern._theta_vector(),
+                       kern._operands(bd1, bd2, idx1, idx2),
+                       knode=kern.node_kernel, kedge=kern.edge_kernel,
+                       n_p_theta=1, mode='cuda')
+        return (s['T'], s['esrc_1'], s['edst_1'], s['esrc_2'],
+                s['edst_2'], s['diag'].contiguous(),
+                s['precond'].contiguous(), s['b'].contiguous(), s['tol'],
+                maxiter)
+
+    molecules = {}
+    kern = hyperparameters_from_numpy(kernel(0.2), np.load(FIXTURE)['theta'])
+    for seed, n, atoms in MIDSIZE_MOLECULES:
+        batch, bd, _ = kern._prepare_batch(
+            random_molecule_set(seed, n, n_atoms_range=atoms))
+        n_pad, m_pad = batch.node_mask.shape[1], batch.esrc.shape[1]
+        jobs = [torch.as_tensor(j[:kern._chunk_size(n_pad, m_pad)],
+                                device='cuda') for j in np.triu_indices(n)]
+        molecules[f'molecules {atoms[0]}-{atoms[1] - 1}'] = operands(
+            kern, bd, bd, *jobs, kern.maxiter(n_pad))
+    kern = kernel(0.3)
+    mols = load_qm7()[0]
+    graphs = Graph.unify_datatype([
+        Graph.from_ase(mols[r], use_pbc=False)
+        for r in np.arange(QM7_GRAM) % len(mols)])
+    fac = kern._get_call_factory(graphs, None)
+    beyond = [g for g in fac._plan.groups if not resident_fits(
+        g['bd1']['esrc'].shape[1], g['bd2']['esrc'].shape[1], g['n1'],
+        g['n2'], torch.device('cuda'))]
+    grp = max(beyond, key=lambda g: g['bd1']['esrc'].shape[1]
+              * g['bd2']['esrc'].shape[1])
+    _, idx1, idx2 = next(iter(fac._plan.chunks(grp)))
+    (a, a_args), (other, other_args) = molecules.items()
+    return {a: a_args,
+            f'QM7 group ({grp["n1"]}, {grp["n2"]}), m = {grp["m_pad"]}':
+            operands(kern, grp['bd1'], grp['bd2'], idx1, idx2,
+                     fac._group_maxiter(grp)),
+            other: other_args}
+
+
+def stream_launches_a_call(args):
+    """The kernels one ``pcg_stream`` call launches on these operands: two
+    live-flag scans, the sort and the permuted copy of T, then one
+    cooperative grid for every ``grid // C`` pairs."""
+    from graphdot_tpu_torch.ops.pcg import stream_ctas_per_pair, stream_grid
+    T, diag = args[0], args[5]
+    grid = stream_grid(*T.shape[1:], *diag.shape[1:], T.device)
+    C = stream_ctas_per_pair(T.shape[0], diag.shape[1], grid)
+    return 4 + math.ceil(T.shape[0] / (grid // C))
+
+
+def cluster_phase(chunks):
+    """Phase 24: ``pcg_cluster`` against its plain twin on the mid-size
+    chunks (:func:`midsize_chunks`) at every cluster size that holds them,
+    each run twice and bitwise equal; the tangent systems of 64 pairs of
+    48-71-atom molecules as one launch with ``op`` (and the tangent route's
+    ``_cluster_tangents``) against the twin; a protein pair of the JAX
+    fixture (5.2 MB of T) fits no cluster: ``pcg_cluster`` raises on it and
+    the route names ``'stream'``. Returns (the largest max |x - x_twin|,
+    {chunk: {K: row}})."""
+    import torch
+    from graphdot_tpu_torch.convert import hyperparameters_from_numpy
+    from graphdot_tpu_torch.kernel import MarginalizedGraphKernel
+    from graphdot_tpu_torch.kernel.marginalized import _solver
+    from graphdot_tpu_torch.kernel.marginalized._solver import (
+        chunk_route, mlgk_setup, mlgk_tangents)
+    from graphdot_tpu_torch.microkernel import (
+        KroneckerDelta, SquareExponential, TensorProduct)
+    from graphdot_tpu_torch.ops.pcg import (
+        CLUSTER_SIZES, cluster_fits, cluster_occupancy, cluster_smem,
+        pcg_cluster, pcg_cluster_reference, smallest_cluster)
+    from graphdot_tpu_torch.testing import (
+        protein_niche_set, random_molecule_set)
+
+    worst, rows = 0.0, {}
+    for name, args in chunks.items():
+        T, diag = args[0], args[5]
+        shapes = (*T.shape[1:], *diag.shape[1:])
+        smallest = smallest_cluster(*shapes, T.device)
+        check(smallest in CLUSTER_SIZES,
+              f'{name}: {T.shape[0]} pairs, M = {tuple(shapes[:2])}, N = '
+              f'{tuple(shapes[2:])}, fit a cluster of {smallest} CTAs')
+        x_r, it_r = pcg_cluster_reference(*args)
+        scale = float(x_r.abs().max())
+        rows[name] = {}
+        for K in CLUSTER_SIZES:
+            smem, limit = cluster_smem(K, *shapes, T.device)
+            if K < smallest or smem > limit:
+                continue
+            occ = cluster_occupancy(K, *shapes, T.device)
+            if occ['active_clusters'] < 1:
+                say(f'  {name}, K = {K}: the card schedules no such '
+                    f'cluster ({occ})')
+                continue
+            x_a, it_a = pcg_cluster(*args, cluster_size=K)
+            x_b, it_b = pcg_cluster(*args, cluster_size=K)
+            torch.cuda.synchronize()
+            err = float((x_a - x_r).abs().max())
+            worst = max(worst, err)
+            rows[name][K] = {'max_abs_err': err, 'occupancy': occ,
+                             'cg_steps_mean': float(it_a.float().mean()),
+                             'cg_steps_max': int(it_a.max())}
+            check(bool(torch.isfinite(x_a).all()) and err <= 1e-5 * scale
+                  and torch.equal(x_a, x_b) and torch.equal(it_a, it_b),
+                  f'{name}, K = {K} ({occ}): max |x_cluster - x_twin| = '
+                  f'{err:.3e} <= 1e-5 * max |x| = {1e-5 * scale:.3e}, two '
+                  f'runs bitwise equal; CG steps mean '
+                  f'{float(it_a.float().mean()):.3f} max {int(it_a.max())}, '
+                  f'twin mean {float(it_r.float().mean()):.3f} max '
+                  f'{int(it_r.max())}')
+        del x_r
+    # tangents: 64 pairs of the 48-71-atom molecules, k a pair
+    kern = hyperparameters_from_numpy(MarginalizedGraphKernel(
+        TensorProduct(element=KroneckerDelta(0.2)),
+        TensorProduct(length=SquareExponential(0.3)), q=0.05,
+        device='cuda'), np.load(FIXTURE)['theta'])
+    seed, n, atoms = MIDSIZE_MOLECULES[1]
+    batch, bd, _ = kern._prepare_batch(
+        random_molecule_set(seed, n, n_atoms_range=atoms))
+    n_pad = batch.node_mask.shape[1]
+    idx1, idx2 = (torch.as_tensor(j[:64], device='cuda')
+                  for j in np.triu_indices(n))
+    kw = dict(knode=kern.node_kernel, kedge=kern.edge_kernel, n_p_theta=1,
+              mode='cuda')
+    theta = kern._theta_vector()
+    ops = kern._operands(bd, bd, idx1, idx2)
+    s = mlgk_setup(theta, ops, **kw)
+    operator = [s[f].contiguous() for f in (
+        'T', 'esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'diag', 'precond')]
+    maxiter = kern.maxiter(n_pad)
+    x, _ = pcg_cluster(*operator, s['b'].contiguous(), s['tol'], maxiter)
+    rhs = mlgk_tangents(theta, ops, s, x, **kw)['rhs'].contiguous()
+    P, k = rhs.shape[:2]
+    op = torch.arange(P, dtype=torch.int32, device='cuda').repeat_interleave(
+        k)
+    t_args = (*operator, rhs.reshape(P * k, *rhs.shape[2:]),
+              s['gtol'].repeat_interleave(k).contiguous(), maxiter)
+    before = pcg_cluster.launches
+    x_t, it_t = pcg_cluster(*t_args, op=op)
+    x_u, _ = _solver._cluster_tangents(*operator, rhs, s['gtol'], maxiter)
+    x_r, it_r = pcg_cluster_reference(*t_args, op=op)
+    torch.cuda.synchronize()
+    err = float((x_t - x_r).abs().max())
+    scale = float(x_r.abs().max())
+    worst = max(worst, err)
+    check(pcg_cluster.launches == before + 2
+          and bool(torch.isfinite(x_t).all()) and err <= 1e-5 * scale
+          and torch.equal(x_u.reshape(x_t.shape), x_t),
+          f'the {k} tangents of {P} pairs ({atoms[0]}-{atoms[1] - 1} atoms) '
+          f'as {P * k} systems naming {P} operators, one launch, K = '
+          f'{pcg_cluster.last_cluster_size}: max |x - x_twin| = {err:.3e} <= '
+          f'1e-5 * max |x| = {1e-5 * scale:.3e}; _cluster_tangents the same '
+          f'bits; CG steps mean {float(it_t.float().mean()):.3f}, twin '
+          f'{float(it_r.float().mean()):.3f}')
+    del x_t, x_u, x_r, t_args
+    # a protein pair of the JAX fixture: beyond any cluster
+    pref = np.load(PROTEIN_FIXTURE)
+    proteins = protein_niche_set(int(pref['seed']), 2,
+                                 tuple(pref['residues']))
+    pk = MarginalizedGraphKernel(
+        TensorProduct(element=KroneckerDelta(0.2)),
+        TensorProduct(length=SquareExponential(3.0),
+                      ctype=KroneckerDelta(0.3)), q=0.05, device='cuda')
+    batch, pbd, _ = pk._prepare_batch(proteins)
+    pn, pm = batch.node_mask.shape[1], batch.esrc.shape[1]
+    one = torch.zeros(1, dtype=torch.long, device='cuda')
+    ps = mlgk_setup(pk._theta_vector(), pk._operands(pbd, pbd, one, one + 1),
+                    knode=pk.node_kernel, kedge=pk.edge_kernel, n_p_theta=1,
+                    mode='cuda')
+    p_args = [ps[f].contiguous() for f in (
+        'T', 'esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'diag', 'precond', 'b',
+        'tol')] + [pk.maxiter(pn)]
+    try:
+        pcg_cluster(*p_args)
+    except ValueError as e:
+        raised = str(e)
+    else:
+        raised = None
+    check(raised is not None and not cluster_fits(pm, pm, pn, pn, 'cuda')
+          and chunk_route('cuda', pm, pm, pn, pn, 'cuda') == 'stream',
+          f'a protein pair of the fixture (n = {pn}, m = {pm}, T '
+          f'{p_args[0].numel() * 4 / 1e6:.1f} MB) fits no cluster, the route '
+          f'names stream, and pcg_cluster raises: {raised}')
+    return worst, rows
+
+
+def cluster_timing(chunks):
+    """Phase 9's part for the cluster route: on each mid-size chunk that
+    step 1 of PR 15 names ((a) and (b) of :func:`midsize_chunks`),
+    ``pcg_stream`` (forced, at its default C: the parent's kernel on these
+    pairs) and ``pcg_cluster`` in turns (stream, cluster, cluster, stream)
+    by CUDA events, and each by its device time (``torch.profiler``); the
+    twin once; the CG steps, each call's kernel launches and the chunk's
+    bound; ``pcg_cluster``'s prologue and cost a step. Returns a row a
+    chunk."""
+    from graphdot_tpu_torch.ops.pcg import (
+        cluster_occupancy, pcg_cluster, pcg_cluster_reference, pcg_stream)
+    rows = []
+    for name in list(chunks)[:2]:
+        args = chunks[name]
+        T, diag = args[0], args[5]
+        x_s, it_s = pcg_stream(*args)
+        ctas = pcg_stream.last_ctas_per_pair
+        x_c, it_c = pcg_cluster(*args)
+        K = pcg_cluster.last_cluster_size
+        calls = {'pcg_stream': lambda: pcg_stream(*args),
+                 'pcg_cluster': lambda: pcg_cluster(*args)}
+        events = {k: [] for k in calls}
+        for k in ('pcg_stream', 'pcg_cluster', 'pcg_cluster', 'pcg_stream'):
+            events[k].append(cuda_ms(calls[k], CLUSTER_REPEATS))
+        device = {'pcg_stream': device_ms(calls['pcg_stream'],
+                                          CLUSTER_REPEATS, 'stream'),
+                  'pcg_cluster': device_ms(calls['pcg_cluster'],
+                                           CLUSTER_REPEATS,
+                                           'pcg_cluster_kernel')}
+        plain = cuda_ms(lambda: pcg_cluster_reference(*args), 1)
+        bound = pcg_bound(args, x_c, it_c)
+        split = step_split(pcg_cluster, args, 'pcg_cluster_kernel',
+                           steps=(4, 8))
+        row = {'chunk': name, 'pairs': T.shape[0], 'M': list(T.shape[1:]),
+               'N': list(diag.shape[1:]),
+               'cg_steps_mean': float(it_c.float().mean()),
+               'cg_steps_max': int(it_c.max()),
+               'stream_cg_steps_mean': float(it_s.float().mean()),
+               'max_abs_err': float((x_c - x_s).abs().max()),
+               'ms': float(np.mean(events['pcg_cluster'])),
+               'device_ms': device['pcg_cluster'],
+               'stream_ms': float(np.mean(events['pcg_stream'])),
+               'stream_device_ms': device['pcg_stream'],
+               'events_in_turns': events, 'plain_ms': plain,
+               'bound_ms': bound[0], 'bound_by': bound[1],
+               'stream_floor_ms': bound[2], 'cluster_size': K,
+               'stream_ctas_per_pair': ctas,
+               'launches_a_call': {'pcg_cluster': 1,
+                                   'pcg_stream': stream_launches_a_call(
+                                       args)},
+               'occupancy': cluster_occupancy(K, *T.shape[1:],
+                                              *diag.shape[1:], T.device),
+               'split': split}
+        say(f'  {name}: {T.shape[0]} pairs, M = {row["M"]}, N = {row["N"]}; '
+            f'CG steps mean {row["cg_steps_mean"]:.3f} max '
+            f'{row["cg_steps_max"]}: pcg_cluster (K = {K}) '
+            f'{row["ms"]:.4f} ms by events, device {row["device_ms"]} ms; '
+            f'pcg_stream (C = {ctas}, {row["launches_a_call"]["pcg_stream"]} '
+            f'kernels a call) {row["stream_ms"]:.4f} ms, device '
+            f'{row["stream_device_ms"]} ms; in turns {events}; plain twin '
+            f'{plain:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}), T '
+            f'streamed once a step {bound[2]:.4f} ms; pcg_cluster by part '
+            f'{split}')
+        rows.append(row)
+    return rows
+
+
 def launch_counts():
     """Reset and read the PCG kernels' launch counters: returns a function
     giving {name: launches since the reset}."""
     from graphdot_tpu_torch.ops.pcg import (
-        pcg_packed, pcg_resident, pcg_stream)
-    counters = (pcg_resident, pcg_packed, pcg_stream)
+        pcg_cluster, pcg_packed, pcg_resident, pcg_stream)
+    counters = (pcg_resident, pcg_packed, pcg_stream, pcg_cluster)
     for c in counters:
         c.launches = 0
 
@@ -2812,8 +3136,8 @@ def main():
         KroneckerDelta, SquareExponential, TensorProduct)
     from graphdot_tpu_torch.ops import _build
     from graphdot_tpu_torch.ops.pcg import (
-        group_pairs, kernel_occupancy, largest_packed_k, pcg_packed,
-        pcg_packed_reference,
+        group_pairs, kernel_occupancy, largest_packed_k, pcg_cluster,
+        pcg_packed, pcg_packed_reference,
         pcg_resident, pcg_resident_reference, pcg_stream,
         pcg_stream_reference)
     from graphdot_tpu_torch.testing import (
@@ -2839,13 +3163,13 @@ def main():
                 entry = found.group(1)
                 packed = re.search(
                     r'pcg_packed_kernelILi(\d+)ELi(\d+)ELb(\d)', entry)
-                resident = re.search(r'pcg_resident_kernelILi(\d+)E', entry)
+                single = re.search(r'pcg_(resident|cluster)_kernelILi(\d+)E',
+                                   entry)
                 if packed:
                     entry = 'pcg_packed_kernel<K={}, NPT={}, shared={}>' \
                         .format(*packed.groups())
-                elif resident:
-                    entry = 'pcg_resident_kernel<NPT={}>'.format(
-                        *resident.groups())
+                elif single:
+                    entry = 'pcg_{}_kernel<NPT={}>'.format(*single.groups())
             elif 'bytes stack frame' in line:
                 spill = line.split(':', 1)[-1].strip()
             elif 'Used' in line and 'registers' in line and entry:
@@ -2856,7 +3180,7 @@ def main():
     say('== 2. kernel build')
     t0 = time.perf_counter()
     _build.build(*_build.KERNELS)
-    say(f'  all three built and loaded in {time.perf_counter() - t0:.2f} s')
+    say(f'  all four built and loaded in {time.perf_counter() - t0:.2f} s')
     build_report('pcg_resident')
 
     ref = np.load(FIXTURE)
@@ -3112,9 +3436,16 @@ def main():
           f'|x_stream - x_resident| = '
           f'{err:.3e} <= 1e-5 * max |x| = {1e-5 * scale:.3e}')
 
+    say('== 24. pcg_cluster: build and twin checks on the mid-size chunks')
+    build_report('pcg_cluster')
+    t0 = time.perf_counter()
+    midsize = midsize_chunks()
+    say(f'  the mid-size chunks built in {time.perf_counter() - t0:.3f} s')
+    cluster_err, cluster_checks = cluster_phase(midsize)
+
     say('== 7. the protein slice: normalized Gram, backend=cuda')
     p_chunks = math.ceil(p_pairs / p_chunk)
-    pcg_resident.launches = pcg_stream.launches = 0
+    pcg_resident.launches = pcg_stream.launches = pcg_cluster.launches = 0
     t0 = time.perf_counter()
     KP = Normalization(pkernel)(proteins)
     say(f'  first build {time.perf_counter() - t0:.4f} s')
@@ -3123,7 +3454,8 @@ def main():
     say(f'  pcg_stream ran {stream_ctas} CTAs a pair')
     check(stream_launches == p_chunks,
           f'pcg_stream launched {stream_launches} times = {p_chunks} chunks')
-    check(pcg_resident.launches == 0, 'pcg_resident launched 0 times')
+    check(pcg_resident.launches == pcg_cluster.launches == 0,
+          'pcg_resident and pcg_cluster launched 0 times')
     check(KP.shape == (len(proteins),) * 2 and bool(np.isfinite(KP).all()),
           f'K is a finite {len(proteins)}x{len(proteins)} matrix')
     sym_err = float(np.abs(KP - KP.T).max())
@@ -3154,11 +3486,12 @@ def main():
     small = protein_niche_set(int(pref['seed']), int(pref['n_graphs']),
                               tuple(pref['residues']))
     skernel = hyperparameters_from_numpy(protein_kernel(), pref['theta'])
-    pcg_resident.launches = pcg_stream.launches = 0
+    pcg_resident.launches = pcg_stream.launches = pcg_cluster.launches = 0
     KS = Normalization(skernel)(small)
-    check(pcg_stream.launches >= 1 and pcg_resident.launches == 0,
+    check(pcg_stream.launches >= 1
+          and pcg_resident.launches == pcg_cluster.launches == 0,
           f'small proteins: pcg_stream launched {pcg_stream.launches} '
-          'times, pcg_resident 0')
+          'times, pcg_resident and pcg_cluster 0')
     fix_err = float(np.abs(KS - pref['K']).max())
     check(fix_err <= 1e-6, f'max |K - K_jax| over the fixture\'s '
           f'{len(small)} proteins = {fix_err:.3e} <= 1e-6')
@@ -3167,33 +3500,41 @@ def main():
     say('  the molecule sets of 32 (528 jobs) on the per-pair route')
     big = random_molecule_set(7, 32, n_atoms_range=(48, 72))
     with api_union('0'):
-        pcg_resident.launches = pcg_stream.launches = 0
+        pcg_resident.launches = pcg_stream.launches = pcg_cluster.launches = 0
         KB = Normalization(make_kernel())(big)
-        check(pcg_stream.launches >= 1 and pcg_resident.launches == 0,
-              f'48-72-atom molecules: pcg_stream launched '
-              f'{pcg_stream.launches} times, pcg_resident 0')
+        midsize_launches = pcg_cluster.launches
+        check(pcg_cluster.launches >= 1
+              and pcg_resident.launches == pcg_stream.launches == 0,
+              f'48-72-atom molecules: pcg_cluster launched '
+              f'{pcg_cluster.launches} times (K = '
+              f'{pcg_cluster.last_cluster_size}), pcg_resident and '
+              'pcg_stream 0')
         big_err = float(np.abs(
             KB - Normalization(make_kernel('edge'))(big)).max())
         check(big_err <= 1e-6, f'max |K_cuda - K_edge| over 32 molecules '
               f'of 48-72 atoms = {big_err:.3e} <= 1e-6')
         large = {}
         for atoms, solver in (((48, 56), pcg_resident),
-                              ((56, 64), pcg_stream)):
+                              ((56, 64), pcg_cluster)):
             large[atoms] = random_molecule_set(7, 32, n_atoms_range=atoms)
             lbatch, _, _ = kernel._prepare_batch(large[atoms])
             ln = lbatch.node_mask.shape[1]
             pcg_resident.launches = pcg_stream.launches = 0
+            pcg_cluster.launches = 0
             KL = Normalization(make_kernel())(large[atoms])
             check(solver.launches >= 1 and pcg_resident.launches
-                  + pcg_stream.launches == solver.launches,
+                  + pcg_stream.launches + pcg_cluster.launches
+                  == solver.launches,
                   f'{atoms[0]}-{atoms[1] - 1}-atom molecules (n = {ln}, m = '
                   f'{lbatch.esrc.shape[1]}): {solver.__name__} launched '
-                  f'{solver.launches} times, the other 0')
+                  f'{solver.launches} times, the others 0')
             err = float(np.abs(KL - Normalization(make_kernel('edge'))(
                 large[atoms])).max())
             check(err <= 1e-6, f'max |K_cuda - K_edge| = {err:.3e} <= 1e-6')
 
     say('== 9. timing')
+    cluster_times = cluster_timing(midsize)
+    del midsize
     stream_times = {}
     for what, sys_args, reps in (('chunk', p_args, 3), ('lone', lone, 10)):
         for ctas in (1, None, None, 1):
@@ -3372,12 +3713,14 @@ def main():
         'atoms, on the per-pair route')
     with api_union('0'):
         pcg_resident.launches = pcg_stream.launches = 0
-        pcg_packed.launches = 0
+        pcg_packed.launches = pcg_cluster.launches = 0
         _, dKB = Normalization(make_kernel())(big, eval_gradient=True)
-        check(pcg_stream.launches >= 2 and pcg_packed.launches == 0
-              and pcg_resident.launches == 0,
-              f'pcg_stream launched {pcg_stream.launches} times (value and '
-              'tangent solves), pcg_packed and pcg_resident 0')
+        midsize_grad_launches = pcg_cluster.launches
+        check(pcg_cluster.launches >= 2 and pcg_packed.launches == 0
+              and pcg_resident.launches == pcg_stream.launches == 0,
+              f'pcg_cluster launched {pcg_cluster.launches} times (value and '
+              'tangent solves, the tangents of a chunk in one launch), '
+              'pcg_packed, pcg_resident and pcg_stream 0')
         _, dKB_edge = Normalization(make_kernel('edge'))(
             big, eval_gradient=True)
         tol = 1e-3 * float(np.abs(dKB_edge).max()) + 1e-5
@@ -3385,14 +3728,14 @@ def main():
         check(bool(np.isfinite(dKB).all()) and err <= tol,
               f'max |dK_cuda - dK_edge| = {err:.3e} <= {tol:.3e}')
         pcg_resident.launches = pcg_stream.launches = 0
-        pcg_packed.launches = 0
+        pcg_packed.launches = pcg_cluster.launches = 0
         _, dKL = Normalization(make_kernel())(large[48, 56],
                                               eval_gradient=True)
         check(pcg_resident.launches >= 2 and pcg_packed.launches == 0
-              and pcg_stream.launches == 0,
+              and pcg_stream.launches == pcg_cluster.launches == 0,
               f'48-55-atom molecules: pcg_resident launched '
               f'{pcg_resident.launches} times (value solves and tangents one '
-              'a CTA), pcg_packed and pcg_stream 0')
+              'a CTA), pcg_packed, pcg_stream and pcg_cluster 0')
         _, dKL_edge = Normalization(make_kernel('edge'))(
             large[48, 56], eval_gradient=True)
         tol = 1e-3 * float(np.abs(dKL_edge).max()) + 1e-5
@@ -3503,7 +3846,8 @@ def main():
           f'{fg_chunks} chunks, pcg_stream 0')
     factory_launches = {'pcg_resident': pcg_resident.launches,
                         'pcg_packed': pcg_packed.launches,
-                        'pcg_stream': pcg_stream.launches}
+                        'pcg_stream': pcg_stream.launches,
+                        'pcg_cluster': pcg_cluster.launches}
     with api_union('0'):
         KPG, dKP = Normalization(fkernel)(graphs, eval_gradient=True)
     err = float(np.abs(KFG - KPG).max())
@@ -3614,9 +3958,13 @@ def main():
         return {'value Gram (4)': launches if name == 'pcg_resident' else 0,
                 'protein Gram (7)': stream_launches
                 if name == 'pcg_stream' else 0,
+                '48-72-atom Gram (8)': midsize_launches
+                if name == 'pcg_cluster' else 0,
                 'gradient Gram (11)': {
                     'pcg_resident': grad_resident_launches,
-                    'pcg_packed': packed_launches, 'pcg_stream': 0}[name],
+                    'pcg_packed': packed_launches}.get(name, 0),
+                '48-72-atom gradient Gram (12)': midsize_grad_launches
+                if name == 'pcg_cluster' else 0,
                 'factory gradient (14)': factory_launches[name],
                 'GP fit (15)': gp_launches[name],
                 'bench_protein classes, stream route (16)':
@@ -3636,6 +3984,10 @@ def main():
                    for step, counts in parallel_launches.items()},
                 **{step: counts[name]
                    for step, counts in files_launches.items()}}
+
+    # the summary line's row: the QM7 chunk, on the path of the most
+    # launches (phase 23)
+    cluster_main = cluster_times[1]
 
     def headline(row, rows):
         """A kernel's numbers on the summary line: those of its timed
@@ -3687,6 +4039,19 @@ def main():
         **headline(packed_main, packed_rows), 'library_ms': None,
         'split': packed_split,
         'launches_by_path': by_path('pcg_packed'),
+    }, {
+        'name': 'pcg_cluster', 'route': 'cuda',
+        'source': 'graphdot_tpu_torch/csrc/pcg_cluster.cu',
+        'replaces': TPU_STREAM_KERNEL,
+        'launches': files_launches['QM7 file Gram (23)']['pcg_cluster'],
+        'max_abs_err': cluster_err,
+        **{k: cluster_main[k] for k in (
+            'ms', 'device_ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'cluster_size', 'occupancy', 'split')},
+        'library_ms': None,
+        'timed_chunk': cluster_main['chunk'],
+        'chunks': cluster_times, 'checks': cluster_checks,
+        'launches_by_path': by_path('pcg_cluster'),
     }]}))
     say(nvidia_smi())
     say(json.dumps({'ok': True, 'device': {

@@ -5,7 +5,8 @@ The port imports nothing of it: it carries its own copy of the host layer
 (graphs, padded batches, synthetic data, hyperparameter trees), everything
 that computes on tensors is torch, and the product-graph PCG solve runs in
 hand-written CUDA kernels on the card: ``csrc/pcg_resident.cu`` for pairs
-that fit a block's shared memory, ``csrc/pcg_stream.cu`` for larger ones,
+that fit a block's shared memory, ``csrc/pcg_cluster.cu`` for larger ones
+that fit a thread-block cluster's, ``csrc/pcg_stream.cu`` beyond that,
 and ``csrc/pcg_packed.cu`` for the hyperparameter gradient's tangent
 systems, the n_theta systems of a pair as one group. On top of the
 kernel sit the Gram factory, the Gaussian-process models, the samplers of

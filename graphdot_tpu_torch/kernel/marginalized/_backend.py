@@ -5,8 +5,9 @@ Four ways to solve the product-graph systems:
 
 - ``'cuda'`` (what ``'auto'`` picks on a CUDA device): the edge-factored
   operands go to the hand-written PCG kernels: ``ops/pcg.py::pcg_resident``
-  (one CTA per pair, all CG state in shared memory), ``pcg_stream`` for
-  pairs beyond a block's shared memory, and ``pcg_packed`` for the
+  (one CTA per pair, all CG state in shared memory), ``pcg_cluster`` for
+  pairs beyond a block that fit a cluster of at most 16 CTAs,
+  ``pcg_stream`` beyond that, and ``pcg_packed`` for the
   gradient's tangent systems (one CTA per pair's group of them). Pairs
   beyond a block whose product space exceeds ``_solver.KRON_MIN_N`` and
   whose edge kernel calibrates take the kron route instead

@@ -40,8 +40,8 @@ from ._solver import (_apply_on_features, _split_theta, chunk_route,
 from .starting_probability import StartingProbability, Uniform, Adhoc
 
 
-#: working-set budget, in floats, of a chunk of pairs that runs in
-#: ``pcg_stream``
+#: working-set budget, in floats, of a chunk of pairs beyond a block
+#: (``pcg_cluster`` and ``pcg_stream``)
 STREAM_CHUNK_FLOATS = 1 << 30
 #: working-set budget, in floats, of a chunk of pairs on the kron route
 KRON_CHUNK_FLOATS = 1 << 30
@@ -136,10 +136,11 @@ class JobPlan:
 
     def route(self, grp, ranks=None):
         """The route of the group's chunks (:func:`._solver.chunk_route`):
-        ``'kron'``, ``'resident'``, ``'stream'``, or the plain mode. It is
-        named here only: :meth:`solve` hands it to every chunk's solve, and
-        :meth:`chunks` sizes the chunks for it. ``ranks`` (default: those
-        of :attr:`kron`) are the calibrated ranks the rule reads."""
+        ``'kron'``, ``'resident'``, ``'cluster'``, ``'stream'``, or the
+        plain mode. It is named here only: :meth:`solve` hands it to every
+        chunk's solve, and :meth:`chunks` sizes the chunks for it.
+        ``ranks`` (default: those of :attr:`kron`) are the calibrated ranks
+        the rule reads."""
         mode = self.kernel.backend.mode
         if mode not in ('cuda', 'kron'):
             return mode
@@ -542,8 +543,8 @@ class MarginalizedGraphKernel:
                     route=None, grid=None, copies=1):
         """Job-chunk size bounded by the solver's working-set memory
         (~256 MB of float32 per chunk; ~4 GB for pairs that run in
-        ``pcg_stream``, whose launch overhead and three grid barriers per
-        CG step are paid once a chunk, and on the kron route). Gradients
+        ``pcg_cluster`` or ``pcg_stream``, whose launch and host overheads
+        are paid once a chunk, and on the kron route). Gradients
         carry one tangent system per hyperparameter, and nodal gradients
         [chunk, n, n, n_dims] outputs, which scale the per-pair working set
         as in the JAX package. ``route`` defaults to the one of mode
@@ -575,7 +576,7 @@ class MarginalizedGraphKernel:
             per_pair = max(n_pad ** 4, 1)
         else:
             per_pair = max(m_pad * m_pad + 4 * m_pad * n_pad + 8 * nn, 1)
-            if route == 'stream':
+            if route in ('cluster', 'stream'):
                 budget = STREAM_CHUNK_FLOATS
         if copies > 1:
             budget = max(budget, min(budget * copies, BATCHED_CHUNK_FLOATS))

@@ -13,7 +13,7 @@ in plain torch, ``'cuda'`` in the CUDA PCG kernels), or the
 sum-of-Kronecker form of :mod:`._kron` (``'kron'``: two batched products
 over Chebyshev factors, no T). :func:`solve_route` names the route of each
 chunk before any launch: ``pcg_resident`` (``pcg_packed`` for tangents),
-``pcg_stream`` or kron. The batched PCG loop itself lives in
+kron, ``pcg_cluster`` or ``pcg_stream``. The batched PCG loop itself lives in
 :mod:`graphdot_tpu_torch.ops.pcg`, where the kernels' plain twins share it.
 
 Gradients in the hyperparameters theta are forward mode, as the JAX
@@ -29,9 +29,9 @@ import functools
 
 import torch
 
-from ...ops.pcg import (gather_offdiag, largest_packed_k, offdiag_operator,
-                        pcg, pcg_packed, pcg_resident, pcg_stream,
-                        resident_fits)
+from ...ops.pcg import (cluster_fits, gather_offdiag, largest_packed_k,
+                        offdiag_operator, pcg, pcg_cluster, pcg_packed,
+                        pcg_resident, pcg_stream, resident_fits)
 from ._kron import (fold_side_2, kron_factors,
                     kron_grid_kernel, kron_offdiag, kron_pcg,
                     kron_tangent_offdiag)
@@ -118,19 +118,21 @@ def _apply_on_features(kernel, theta, X, Y):
 # ---------------------------------------------------------------------------
 
 
-def solve_route(mode, fits, eligible, ranks, n1n2, kron_min_n=None):
+def solve_route(mode, fits, eligible, ranks, n1n2, kron_min_n=None,
+                fits_cluster=False):
     """The route of a chunk of pairs, named before any launch: ``'kron'``,
     ``'resident'`` (``pcg_resident``, and ``pcg_packed`` for tangents),
-    ``'stream'`` (``pcg_stream``), or the plain mode (``'edge'``,
-    ``'dense'``).
+    ``'cluster'`` (``pcg_cluster``), ``'stream'`` (``pcg_stream``), or the
+    plain mode (``'edge'``, ``'dense'``).
 
     Mode ``'kron'`` solves every pair by kron. Mode ``'cuda'`` keeps a chunk
     whose pairs ``fits`` a block in ``pcg_resident``; otherwise it takes
     kron when the edge features are ``eligible`` (:func:`._kron.
     kron_eligible`), the ``ranks`` are calibrated (not None, not ``'off'``)
     and the padded product space ``n1n2`` exceeds ``kron_min_n`` (default
-    :data:`KRON_MIN_N`), and ``pcg_stream`` else. No route stands in for
-    another after a failure."""
+    :data:`KRON_MIN_N`); else ``pcg_cluster`` when a pair ``fits_cluster``
+    (a thread-block cluster of at most 16 CTAs holds it), and
+    ``pcg_stream`` last. No route stands in for another after a failure."""
     if mode == 'kron':
         return 'kron'
     if mode != 'cuda':
@@ -142,24 +144,30 @@ def solve_route(mode, fits, eligible, ranks, n1n2, kron_min_n=None):
     if eligible and ranks is not None and ranks != 'off' \
             and n1n2 > kron_min_n:
         return 'kron'
-    return 'stream'
+    return 'cluster' if fits_cluster else 'stream'
 
 
 def chunk_route(mode, M1, M2, N1, N2, device, eligible=False, ranks=None):
     """:func:`solve_route` for pairs of these shapes on ``device``: they fit
     a block when :func:`resident_fits` says so on a CUDA device (its shared
     memory, and the registers of the CG state of its product nodes), and
-    always on the CPU, where the resident route runs its plain twin."""
+    always on the CPU, where the resident route runs its plain twin; pairs
+    beyond a block fit a cluster when :func:`cluster_fits` says so."""
     device = torch.device(device)
+    on_card = device.type == 'cuda' and mode == 'cuda'
     fits = device.type != 'cuda' or (
-        mode == 'cuda' and resident_fits(M1, M2, N1, N2, device))
-    return solve_route(mode, fits, eligible, ranks, N1 * N2)
+        on_card and resident_fits(M1, M2, N1, N2, device))
+    fits_cluster = on_card and not fits and cluster_fits(M1, M2, N1, N2,
+                                                         device)
+    return solve_route(mode, fits, eligible, ranks, N1 * N2,
+                       fits_cluster=fits_cluster)
 
 
 def cuda_solver(M1, M2, N1, N2, device, route=None):
     """The kernel that mode ``'cuda'`` solves a chunk of pairs of these
     shapes with, off the kron route: :func:`pcg_resident` on the route
-    ``'resident'``, :func:`pcg_stream` on ``'stream'``. ``route`` is the
+    ``'resident'``, :func:`pcg_cluster` on ``'cluster'``,
+    :func:`pcg_stream` on ``'stream'``. ``route`` is the
     chunk's, as its plan named it (``JobPlan.route``); None names it from
     the shapes by :func:`chunk_route` (one pair fits a block on the CUDA
     ``device``, kron aside).
@@ -171,7 +179,13 @@ def cuda_solver(M1, M2, N1, N2, device, route=None):
     returned."""
     if route is None:
         route = chunk_route('cuda', M1, M2, N1, N2, device)
-    return pcg_resident if route == 'resident' else pcg_stream
+    return {'resident': pcg_resident, 'cluster': pcg_cluster}.get(
+        route, pcg_stream)
+
+
+def _non_finite_members(rhs):
+    """[P, k] bool: the members whose right-hand side holds a NaN or inf."""
+    return ~torch.isfinite(rhs).flatten(2).all(dim=2)
 
 
 def _packed_tangents(group, T, esrc1, edst1, esrc2, edst2, diag, precond,
@@ -191,7 +205,7 @@ def _packed_tangents(group, T, esrc1, edst1, esrc2, edst2, diag, precond,
     non-finite direction stays in its own direction, as in the JAX
     package's gradient."""
     P, k, N1, N2 = rhs.shape
-    bad = ~torch.isfinite(rhs).flatten(2).all(dim=2)
+    bad = _non_finite_members(rhs)
     rhs = torch.where(bad[:, :, None, None], 0.0, rhs)
     n_groups = -(-k // group)
     pad = n_groups * group - k
@@ -230,6 +244,27 @@ def _stream_tangents(T, esrc1, edst1, esrc2, edst2, diag, precond, rhs, tol,
     return x.view(P, k, N1, N2), iters
 
 
+def _cluster_tangents(T, esrc1, edst1, esrc2, edst2, diag, precond, rhs, tol,
+                      maxiter):
+    """The k tangent systems of each of P pairs as P * k systems of one
+    :func:`pcg_cluster` launch, each naming its pair's operator
+    (``op = repeat_interleave(arange(P), k)``), so T is not repeated. Each
+    system has its own step sizes and its pair's tol. A member whose
+    right-hand side holds a NaN or inf is solved with a zero one, which
+    stops at once, and its x is NaN: a non-finite direction stays in its
+    own direction, as in the JAX package's gradient, and costs no steps."""
+    P, k, N1, N2 = rhs.shape
+    bad = _non_finite_members(rhs)
+    rhs = torch.where(bad[:, :, None, None], 0.0, rhs)
+    op = torch.arange(P, dtype=torch.int32, device=T.device) \
+        .repeat_interleave(k)
+    x, iters = pcg_cluster(T, esrc1, edst1, esrc2, edst2, diag, precond,
+                           rhs.reshape(P * k, N1, N2).contiguous(),
+                           tol.repeat_interleave(k), maxiter, op=op)
+    x = x.view(P, k, N1, N2)
+    return torch.where(bad[:, :, None, None], float('nan'), x), iters
+
+
 def cuda_tangent_solver(k, M1, M2, N1, N2, device, route=None):
     """The solver that mode ``'cuda'`` runs the k tangent systems of each
     pair of a chunk with, as ``solve(T, esrc1, edst1, esrc2, edst2, diag,
@@ -246,8 +281,10 @@ def cuda_tangent_solver(k, M1, M2, N1, N2, device, route=None):
       member launch :func:`pcg_resident`'s kernel (pairs of more than
       2048 product nodes, where two members' CG state exceeds a block's
       registers);
-    - :func:`pcg_stream` over P * k systems on the route ``'stream'``, a
-      single pair beyond a block.
+    - :func:`pcg_cluster` over P * k systems in one launch on the route
+      ``'cluster'``, each naming its pair's operator;
+    - :func:`pcg_stream` over P * k systems on the route ``'stream'``,
+      each pair's operator repeated k times.
 
     ``route`` is the chunk's, as :func:`cuda_solver` takes it (None: from
     the shapes by :func:`chunk_route`).
@@ -262,6 +299,8 @@ def cuda_tangent_solver(k, M1, M2, N1, N2, device, route=None):
         route = chunk_route('cuda', M1, M2, N1, N2, device)
     if route == 'stream':
         return _stream_tangents
+    if route == 'cluster':
+        return _cluster_tangents
     group = largest_packed_k(k, M1, M2, N1, N2, device, shared=True)
     n_groups = -(-k // group)
     return functools.partial(_packed_tangents, -(-k // n_groups))
@@ -639,7 +678,8 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     ``route`` is the chunk's route as its plan named it before any launch
     (``JobPlan.route``, by :func:`solve_route`): ``'kron'`` builds the kron
     system with the ``kron`` plan (:class:`._kron.KronPlan`), whatever the
-    mode; ``'resident'`` and ``'stream'`` pick mode ``'cuda'``'s kernels.
+    mode; ``'resident'``, ``'cluster'`` and ``'stream'`` pick mode
+    ``'cuda'``'s kernels.
     None takes mode ``'kron'``'s route for mode ``'kron'``, and names mode
     ``'cuda'``'s from the chunk's shapes (:func:`chunk_route`, kron aside).
 

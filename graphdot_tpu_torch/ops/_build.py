@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 )
 
 #: the kernel sources in ``csrc/``, by name
-KERNELS = ('pcg_resident', 'pcg_stream', 'pcg_packed')
+KERNELS = ('pcg_resident', 'pcg_stream', 'pcg_packed', 'pcg_cluster')
 
 #: source name -> (ctypes.CDLL, {'seconds': build wall time until it was
 #: collected, 'log': nvcc output})

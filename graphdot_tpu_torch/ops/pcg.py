@@ -28,6 +28,13 @@ lists (``esrc``/``edst`` indices), not as one-hot matrices.
   :func:`pcg_stream_reference`.
 - :func:`pcg_stream_reference` is its plain twin, the same function as
   :func:`pcg_resident_reference`.
+- :func:`pcg_cluster` launches ``csrc/pcg_cluster.cu`` on CUDA tensors (one
+  system a thread-block cluster of K CTAs, T's live rows held in the
+  cluster's shared memory for the whole solve), for pairs beyond a block
+  that fit a cluster of at most 16 CTAs (:func:`cluster_fits`). Each system
+  names its operator (``op``), so a pair's tangent systems share one T.
+  Given CPU tensors it runs :func:`pcg_cluster_reference`, the same function
+  as :func:`pcg_stream_reference` over the operators that ``op`` names.
 - :func:`pcg_packed` launches ``csrc/pcg_packed.cu`` on CUDA tensors: one
   CTA per group of k systems that run ONE PCG on their union, with the dot
   products summed over the members and shared step sizes, stopping at the
@@ -354,6 +361,61 @@ def pcg_stream_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
                       maxiter)
 
 
+def _check_cluster(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+                   maxiter, op):
+    """Validate the operands of the cluster solver: P operators, S systems
+    with ``op`` [S] int32 in [0, P) (None: S = P, system p on operator p);
+    returns (S, P, M1, M2, N1, N2)."""
+    if T.dim() != 3:
+        raise ValueError(f'T must be [P, M1, M2], got {tuple(T.shape)}')
+    if diag.dim() != 3 or diag.shape[0] != T.shape[0]:
+        raise ValueError(
+            f'diag must be [P={T.shape[0]}, N1, N2], got {tuple(diag.shape)}')
+    if not isinstance(b, torch.Tensor) or b.dim() != 3:
+        raise ValueError('b must be a [S, N1, N2] torch.Tensor')
+    P, M1, M2 = T.shape
+    N1, N2 = diag.shape[1:]
+    S = b.shape[0] if op is not None else P
+    operands = {
+        'esrc1': (esrc1, (P, M1), torch.int32),
+        'edst1': (edst1, (P, M1), torch.int32),
+        'esrc2': (esrc2, (P, M2), torch.int32),
+        'edst2': (edst2, (P, M2), torch.int32),
+        'T': (T, (P, M1, M2), torch.float32),
+        'diag': (diag, (P, N1, N2), torch.float32),
+        'precond': (precond, (P, N1, N2), torch.float32),
+        'b': (b, (S, N1, N2), torch.float32),
+        'tol': (tol, (S,), torch.float32),
+    }
+    indices = [(esrc1, N1), (edst1, N1), (esrc2, N2), (edst2, N2)]
+    if op is not None:
+        operands['op'] = (op, (S,), torch.int32)
+        indices.append((op, P))
+    _validate(operands, T.device, maxiter, indices)
+    return S, P, M1, M2, N1, N2
+
+
+def pcg_cluster_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
+                          tol, maxiter, op=None):
+    """Plain-torch twin of :func:`pcg_cluster`, with the same arguments and
+    results: ``(x [S,N1,N2] f32, iters [S] int32)``.
+
+    System s solves with operator ``op[s]`` (T, the edge lists, diag and
+    precond of that row), by the same function as
+    :func:`pcg_stream_reference`: the operators that ``op`` names are
+    gathered, then solved as that twin solves them. ``op`` None is
+    ``arange(P)``."""
+    _check_cluster(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+                   maxiter, op)
+    if op is not None:
+        index = op.long()
+        T, esrc1, edst1, esrc2, edst2, diag, precond = (
+            a.index_select(0, index) for a in (T, esrc1, edst1, esrc2,
+                                               edst2, diag, precond))
+    return _plain_pcg(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+                      maxiter)
+
+
 def pcg_packed_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
                          tol, maxiter):
     """Plain-torch twin of :func:`pcg_packed`, with the same arguments and
@@ -476,6 +538,27 @@ def _packed_library():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _cluster_library():
+    """The built cluster-kernel library, with its C signatures."""
+    lib = _build.load('pcg_cluster')
+    ptr, cint, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.graphdot_pcg_cluster.argtypes = [ptr] * 12 + [cint] * 7 + [ptr]
+    lib.graphdot_pcg_cluster.restype = cint
+    lib.graphdot_pcg_cluster_smem_bytes.argtypes = [cint] * 5
+    lib.graphdot_pcg_cluster_smem_bytes.restype = size
+    lib.graphdot_pcg_cluster_nodes_per_thread.argtypes = [cint] * 3
+    lib.graphdot_pcg_cluster_nodes_per_thread.restype = cint
+    lib.graphdot_pcg_cluster_size.argtypes = [cint] * 5
+    lib.graphdot_pcg_cluster_size.restype = cint
+    lib.graphdot_pcg_cluster_occupancy.argtypes = [cint] * 5 + [
+        ctypes.POINTER(cint)]
+    lib.graphdot_pcg_cluster_occupancy.restype = cint
+    lib.graphdot_cuda_error_string.argtypes = [cint]
+    lib.graphdot_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _raise_on(lib, err, what):
     if err:
         msg = lib.graphdot_cuda_error_string(err).decode()
@@ -483,8 +566,8 @@ def _raise_on(lib, err, what):
 
 
 def _device_index(device):
-    return device.index if device.index is not None else \
-        torch.cuda.current_device()
+    index = torch.device(device).index
+    return index if index is not None else torch.cuda.current_device()
 
 
 def _smem_limit(device):
@@ -750,6 +833,149 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
 pcg_stream.launches = 0
 #: CTAs a pair of the last CUDA call of :func:`pcg_stream`
 pcg_stream.last_ctas_per_pair = None
+
+
+#: the cluster sizes of :func:`pcg_cluster`, CTAs a system
+#: (``kSizes`` of ``csrc/pcg_cluster.cu``; 16 is a non-portable size)
+CLUSTER_SIZES = (2, 4, 8, 16)
+
+
+def cluster_smem(K, M1, M2, N1, N2, device):
+    """(bytes of shared memory a CTA of :func:`pcg_cluster` needs in a
+    cluster of K for systems of these shapes, bytes a block can opt into on
+    the CUDA ``device``)."""
+    return (_cluster_library().graphdot_pcg_cluster_smem_bytes(
+        K, M1, M2, N1, N2), _smem_limit(device))
+
+
+def smallest_cluster(M1, M2, N1, N2, device):
+    """The smallest cluster of :data:`CLUSTER_SIZES` whose CTAs hold a
+    system of these shapes on the CUDA ``device``: a CTA's rows of T, W,
+    two copies of the N1 * N2 vector and the edge lists within a block's
+    shared memory, and its N1 * N2 / K product nodes within 8 a thread of
+    its 512. 0 when none does."""
+    return _cluster_library().graphdot_pcg_cluster_size(
+        M1, M2, N1, N2, _smem_limit(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_occupancy(K, M1, M2, N1, N2, device_index):
+    out = (ctypes.c_int * 4)()
+    lib = _cluster_library()
+    with torch.cuda.device(device_index):
+        err = lib.graphdot_pcg_cluster_occupancy(K, M1, M2, N1, N2, out)
+    _raise_on(lib, err, 'pcg_cluster occupancy')
+    return dict(zip(('active_clusters', 'registers', 'spill_bytes',
+                     'smem_bytes'), out))
+
+
+def cluster_occupancy(K, M1, M2, N1, N2, device):
+    """What :func:`pcg_cluster`'s instance gets in a cluster of K for these
+    shapes on the CUDA ``device``: {'active_clusters' (the clusters the card
+    holds at once, ``cudaOccupancyMaxActiveClusters``), 'registers',
+    'spill_bytes', 'smem_bytes'}. Raises when K is not a cluster size that
+    holds the shapes' product nodes."""
+    return dict(_cluster_occupancy(K, M1, M2, N1, N2,
+                                   _device_index(torch.device(device))))
+
+
+def cluster_fits(M1, M2, N1, N2, device):
+    """Whether a system of these shapes runs in :func:`pcg_cluster` on the
+    CUDA ``device``: some cluster of at most 16 CTAs holds it
+    (:func:`smallest_cluster`), and the card schedules such a cluster."""
+    K = smallest_cluster(M1, M2, N1, N2, device)
+    return K > 0 and \
+        cluster_occupancy(K, M1, M2, N1, N2, device)['active_clusters'] > 0
+
+
+def pcg_cluster(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
+                maxiter, op=None, cluster_size=None):
+    """Solve product-graph systems with the cluster CUDA PCG: one system a
+    thread-block cluster of K CTAs, T's live rows in the cluster's shared
+    memory for the whole solve.
+
+    Parameters
+    ----------
+    T: [P, M1, M2] float32 operators (zero for padded edges).
+    esrc1, edst1: [P, M1] int32; esrc2, edst2: [P, M2] int32.
+    diag, precond: [P, N1, N2] float32, an operator's.
+    b: [S, N1, N2] float32 right-hand sides, one a system.
+    tol: [S] float32 absolute residual-norm thresholds.
+    maxiter: int, CG step bound.
+    op: [S] int32, the operator of each system (None: S = P, one each);
+        the k tangent systems of a pair name its one operator.
+    cluster_size: the CTAs a system, one of :data:`CLUSTER_SIZES` (None:
+        the smallest that holds the shapes, :func:`smallest_cluster`).
+
+    Returns
+    -------
+    (x [S, N1, N2] float32, iters [S] int32)
+
+    CUDA tensors launch the kernel on the current stream, add one to
+    ``pcg_cluster.launches`` and keep K in
+    ``pcg_cluster.last_cluster_size``; CPU tensors run
+    :func:`pcg_cluster_reference`. Raises ValueError when no cluster of at
+    most 16 CTAs holds the shapes, or a forced ``cluster_size`` does not;
+    RuntimeError when the card schedules no such cluster
+    (``cudaOccupancyMaxActiveClusters``) or the launch fails. Nothing
+    falls back to another kernel.
+    """
+    S, P, M1, M2, N1, N2 = _check_cluster(
+        T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter, op)
+    if cluster_size is not None and (
+            not isinstance(cluster_size, int) or isinstance(cluster_size, bool)
+            or cluster_size not in CLUSTER_SIZES):
+        raise ValueError(f'cluster_size must be None or one of '
+                         f'{CLUSTER_SIZES}: {cluster_size!r}')
+    if T.device.type == 'cpu':
+        return pcg_cluster_reference(T, esrc1, edst1, esrc2, edst2, diag,
+                                     precond, b, tol, maxiter, op)
+    if T.device.type != 'cuda':
+        raise ValueError(f'pcg_cluster runs on CUDA or CPU, not {T.device}')
+    lib = _cluster_library()
+    K = smallest_cluster(M1, M2, N1, N2, T.device) if cluster_size is None \
+        else cluster_size
+    smem, limit = cluster_smem(K or 16, M1, M2, N1, N2, T.device)
+    if not K or smem > limit or \
+            not lib.graphdot_pcg_cluster_nodes_per_thread(K, N1, N2):
+        raise ValueError(
+            f'systems with M1={M1}, M2={M2}, N1={N1}, N2={N2} fit no '
+            f'cluster of {K or "at most 16"} CTAs: at K = {K or 16} a CTA '
+            f'needs {smem} bytes of shared memory (a block can have '
+            f'{limit}) and its threads hold at most 8 product nodes each '
+            f'of the N1 * N2 / K. Such pairs run in pcg_stream.')
+    device = _device_index(T.device)
+    occ = _cluster_occupancy(K, M1, M2, N1, N2, device)
+    if occ['active_clusters'] < 1:
+        raise RuntimeError(
+            f'the card schedules no cluster of {K} CTAs of '
+            f'{occ["smem_bytes"]} bytes of shared memory each '
+            '(cudaOccupancyMaxActiveClusters is 0)')
+    x = torch.empty_like(b)
+    iters = torch.empty(S, dtype=torch.int32, device=T.device)
+    if S == 0:
+        return x, iters
+    if op is None:
+        op = torch.arange(S, dtype=torch.int32, device=T.device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.graphdot_pcg_cluster(
+            T.data_ptr(), esrc1.data_ptr(), edst1.data_ptr(),
+            esrc2.data_ptr(), edst2.data_ptr(), diag.data_ptr(),
+            precond.data_ptr(), b.data_ptr(), tol.data_ptr(), op.data_ptr(),
+            x.data_ptr(), iters.data_ptr(),
+            S, K, M1, M2, N1, N2, maxiter, stream)
+    _raise_on(lib, err, 'pcg_cluster launch')
+    pcg_cluster.launches += 1
+    pcg_cluster.last_cluster_size = K
+    return x, iters
+
+
+#: kernel launches made by :func:`pcg_cluster` in this process
+pcg_cluster.launches = 0
+#: the cluster size (CTAs a system) of the last CUDA call of
+#: :func:`pcg_cluster`
+pcg_cluster.last_cluster_size = None
 
 
 def pcg_packed(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,

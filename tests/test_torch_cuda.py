@@ -27,12 +27,13 @@ from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
 from graphdot_tpu_torch.microkernel import (  # noqa: E402
     KroneckerDelta, SquareExponential, TensorProduct)
 from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
-    cuda_tangent_solver, mlgk_tangents)
+    _cluster_tangents, cuda_tangent_solver, mlgk_tangents)
 from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
-    PACKED_MAX_K, group_pairs, largest_packed_k, live_extent,
-    offdiag_operator, pcg_packed,
+    CLUSTER_SIZES, PACKED_MAX_K, cluster_fits, cluster_occupancy,
+    cluster_smem, group_pairs, largest_packed_k, live_extent,
+    offdiag_operator, pcg_cluster, pcg_cluster_reference, pcg_packed,
     pcg_packed_reference, pcg_resident, pcg_resident_reference, pcg_stream,
-    pcg_stream_reference, stream_grid)
+    pcg_stream_reference, smallest_cluster, stream_grid)
 from graphdot_tpu_torch.testing import (  # noqa: E402
     protein_niche_set, random_molecule_set)
 
@@ -629,16 +630,20 @@ def test_gradient_cuda_matches_edge(card):
 
 def test_route_by_shared_memory(card):
     """Molecule pairs fit a block and run pcg_resident; pairs whose
-    product nodes exceed a block's registers, and the protein pairs of the
-    niche, do not, and run pcg_stream, in the kernel class too."""
+    product nodes exceed a block's registers, or whose T exceeds its
+    shared memory, run pcg_cluster while a cluster of at most 16 CTAs holds
+    them; the protein pairs of the niche do not fit one and run
+    pcg_stream, in the kernel class too."""
     assert cuda_solver(64, 64, 24, 24, card) is pcg_resident
     # all fit shared memory; 56 x 56 nodes are 13 a thread, the most a
     # thread holds in registers; 64 x 64 exceed it
     assert cuda_solver(64, 64, 48, 48, card) is pcg_resident
     assert cuda_solver(64, 64, 56, 56, card) is pcg_resident
-    assert cuda_solver(168, 168, 64, 64, card) is pcg_stream
+    assert cuda_solver(168, 168, 64, 64, card) is pcg_cluster
     # the boundary molecules (48-72 atoms) exceed shared memory
-    assert cuda_solver(192, 192, 72, 72, card) is pcg_stream
+    assert cuda_solver(192, 192, 72, 72, card) is pcg_cluster
+    # the QM7 molecules of 352 edges
+    assert cuda_solver(352, 352, 24, 24, card) is pcg_cluster
     assert cuda_solver(1144, 1144, 88, 88, card) is pcg_stream
     assert cuda_solver(3736, 3736, 272, 272, card) is pcg_stream
     graphs = protein_niche_set(13, 2, (60, 90))
@@ -648,9 +653,223 @@ def test_route_by_shared_memory(card):
                       ctype=KroneckerDelta(0.3)),
         q=0.05, device=card)
     resident, stream = pcg_resident.launches, pcg_stream.launches
+    cluster = pcg_cluster.launches
     kernel(graphs)
     assert pcg_resident.launches == resident
+    assert pcg_cluster.launches == cluster
     assert pcg_stream.launches == stream + 1
+
+
+# ---------------------------------------------------------------------------
+# pcg_cluster: one system a thread-block cluster
+# ---------------------------------------------------------------------------
+
+def _cluster_sizes(args):
+    """The cluster sizes whose CTAs hold the systems and that the card
+    schedules."""
+    T, diag = args[0], args[5]
+    shapes = (*T.shape[1:], *diag.shape[1:])
+    smallest = smallest_cluster(*shapes, T.device)
+    assert smallest in CLUSTER_SIZES
+    return [K for K in CLUSTER_SIZES
+            if K >= smallest
+            and cluster_smem(K, *shapes, T.device)[0]
+            <= cluster_smem(K, *shapes, T.device)[1]
+            and cluster_occupancy(K, *shapes, T.device)['active_clusters']]
+
+
+@pytest.mark.parametrize('atoms1,atoms2,case', [
+    ((56, 64), (56, 64), None),     # phase 8's mid-size molecules, n = 64
+    ((48, 56), (64, 72), None),     # rectangular, beyond a block
+    ((9, 24), (9, 24), None),       # the slice's molecules: a block holds
+    ((9, 24), (9, 24), 'dead'),     # them, a cluster too
+    ((9, 24), (9, 24), 'isolated'),
+    ((9, 10), (9, 10), 'padded'),
+])
+def test_cluster_kernel_matches_twin_at_every_size(card, atoms1, atoms2,
+                                                   case):
+    """At every cluster size that holds the systems: the twin's solution,
+    the twin's step counts within one, the same bits twice, one launch a
+    call, and the size kept."""
+    args = _systems(card, atoms1, atoms2)
+    if case == 'padded':
+        args = _padded(args, 24, 64)
+    elif case is not None:
+        args = _edited(args, {'dead': _dead_live_edges,
+                              'isolated': _isolated_top}[case])
+    x_ref, iters_ref = pcg_cluster_reference(*args)
+    sizes = _cluster_sizes(args)
+    assert sizes
+    for K in sizes:
+        before = pcg_cluster.launches
+        x, iters = pcg_cluster(*args, cluster_size=K)
+        x2, iters2 = pcg_cluster(*args, cluster_size=K)
+        torch.cuda.synchronize()
+        assert pcg_cluster.launches == before + 2
+        assert pcg_cluster.last_cluster_size == K
+        _close(x, x_ref)
+        assert int((iters - iters_ref).abs().max()) <= 1
+        assert torch.equal(x, x2) and torch.equal(iters, iters2)
+
+
+def test_cluster_kernel_stop_rules(card):
+    args = list(_systems(card, (56, 64), (56, 64)))
+    x, iters = pcg_cluster(*args[:-1], 0)
+    assert not x.any() and not iters.any()
+    x, iters = pcg_cluster(*args[:-1], 2)
+    assert bool(torch.all(iters == 2))
+    x_ref, _ = pcg_cluster_reference(*args[:-1], 2)
+    _close(x, x_ref)
+    fixed = args[:8] + [torch.zeros_like(args[8])]    # tol = 0
+    x, iters = pcg_cluster(*fixed, 16)
+    assert bool(torch.all(iters == 16))
+    args[7] = torch.zeros_like(args[7])     # b = 0
+    x, iters = pcg_cluster(*args)
+    assert not x.any() and not iters.any()
+    args[7] = torch.ones_like(args[7])
+    args[6] = torch.zeros_like(args[6])     # precond = 0: rz == 0
+    x, iters = pcg_cluster(*args)
+    torch.cuda.synchronize()
+    assert not x.any() and bool(torch.all(iters == 1))
+
+
+def test_cluster_no_systems_launches_nothing(card):
+    args = list(_systems(card, (56, 64), (56, 64))[:-1])
+    args[7], args[8] = args[7][:0], args[8][:0]
+    op = torch.zeros(0, dtype=torch.int32, device=card)
+    before = pcg_cluster.launches
+    x, iters = pcg_cluster(*args, 10, op=op)
+    assert x.shape[0] == 0 and iters.shape == (0,)
+    assert pcg_cluster.launches == before
+
+
+def test_cluster_systems_share_operators(card):
+    """Systems naming their operators (some several times, one none), each
+    with its own right-hand side: the twin's solution, and the bits of the
+    same systems with their operators repeated."""
+    args = _systems(card, (56, 64), (56, 64))
+    operator, maxiter = args[:7], args[9]
+    op = torch.tensor([0, 0, 3, 5, 5, 5, 19, 2, 9, 0], dtype=torch.int32,
+                      device=card)
+    gen = torch.Generator(device='cpu').manual_seed(0)
+    b = torch.randn(len(op), *args[7].shape[1:], generator=gen).to(card) \
+        * args[7].abs().max()
+    tol = args[8][op.long()].contiguous()
+    x, iters = pcg_cluster(*operator, b, tol, maxiter, op=op)
+    x_ref, _ = pcg_cluster_reference(*operator, b, tol, maxiter, op=op)
+    x_rep, iters_rep = pcg_cluster(
+        *[a[op.long()].contiguous() for a in operator], b, tol, maxiter)
+    torch.cuda.synchronize()
+    _close(x, x_ref)
+    assert torch.equal(x, x_rep) and torch.equal(iters, iters_rep)
+
+
+def _midsize_tangents(device):
+    """The 4 tangent systems of each of 20 pairs of 56-63-atom molecules at
+    their value solution: the operators, rhs [P, 4, N1, N2], gtol and
+    maxiter."""
+    kernel = _kernel(device)
+    _, bd1, _ = kernel._prepare_batch(random_molecule_set(3, 5, (56, 64)))
+    _, bd2, _ = kernel._prepare_batch(random_molecule_set(4, 4, (56, 64)))
+    i, j = np.indices((5, 4))
+    ops = kernel._operands(bd1, bd2,
+                           torch.as_tensor(i.ravel(), device=device),
+                           torch.as_tensor(j.ravel(), device=device))
+    theta = kernel._theta_vector()
+    kw = dict(knode=kernel.node_kernel, kedge=kernel.edge_kernel,
+              n_p_theta=1, mode='cuda')
+    s = mlgk_setup(theta, ops, **kw)
+    operator = [s[f].contiguous() for f in (
+        'T', 'esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'diag', 'precond')]
+    maxiter = kernel.maxiter(bd1['node_mask'].shape[1])
+    x, _ = pcg_cluster(*operator, s['b'].contiguous(), s['tol'], maxiter)
+    rhs = mlgk_tangents(theta, ops, s, x, **kw)['rhs'].contiguous()
+    return operator, rhs, s['gtol'].contiguous(), maxiter
+
+
+def test_cluster_tangent_route_on_the_card(card):
+    """The tangent route names pcg_cluster beyond a block: the P * k
+    systems in one launch, each naming its pair's operator, against the
+    twin with the operators repeated."""
+    operator, rhs, tol, maxiter = _midsize_tangents(card)
+    P, k = rhs.shape[:2]
+    solve = cuda_tangent_solver(k, *operator[0].shape[1:], *rhs.shape[2:],
+                                card)
+    assert solve is _cluster_tangents
+    before = pcg_cluster.launches
+    x, iters = solve(*operator, rhs, tol, maxiter)
+    assert pcg_cluster.launches == before + 1 and iters.shape == (P * k,)
+    op = torch.arange(P, dtype=torch.int32, device=card).repeat_interleave(k)
+    x_ref, _ = pcg_cluster_reference(
+        *operator, rhs.reshape(P * k, *rhs.shape[2:]),
+        tol.repeat_interleave(k), maxiter, op=op)
+    torch.cuda.synchronize()
+    _close(x.reshape(x_ref.shape), x_ref)
+
+
+@pytest.mark.parametrize('bad', [float('nan'), float('inf')])
+def test_cluster_tangents_keep_a_non_finite_member_to_itself(card, bad):
+    """The cluster tangent route on the card with one member's right-hand
+    side non-finite in three pairs: that member's x is NaN and takes no
+    step, the other members keep the bits they get with that member's
+    right-hand side zero, pairs without such a member the bits they get
+    alone, and all of them the twin's solution."""
+    operator, rhs, tol, maxiter = _midsize_tangents(card)
+    P, k = rhs.shape[:2]
+    hit = torch.tensor([0, 7, 19], device=card)
+    poisoned, zeroed = rhs.clone(), rhs.clone()
+    poisoned[hit, 3, 1, 2] = bad
+    zeroed[hit, 3] = 0.0
+    x, iters = _cluster_tangents(*operator, poisoned, tol, maxiter)
+    x_zeroed, _ = _cluster_tangents(*operator, zeroed, tol, maxiter)
+    x_clean, _ = _cluster_tangents(*operator, rhs, tol, maxiter)
+    x_ref, _ = _cluster_tangents(*(a.cpu() for a in operator), zeroed.cpu(),
+                                 tol.cpu(), maxiter)
+    torch.cuda.synchronize()
+    assert torch.isnan(x[hit, 3]).all()
+    assert not iters.view(P, k)[hit, 3].any()
+    keep = [0, 1, 2]
+    assert torch.equal(x[:, keep], x_zeroed[:, keep])
+    rest = torch.ones(P, dtype=torch.bool, device=card)
+    rest[hit] = False
+    assert torch.equal(x[rest], x_clean[rest])
+    _close(x[:, keep], x_ref[:, keep].to(card))
+
+
+def test_cluster_beyond_sixteen_raises(card):
+    """A protein pair of the JAX fixture (n = 88, m = 1144, 5.2 MB of T)
+    fits no cluster of at most 16 CTAs: the route names pcg_stream, and
+    pcg_cluster raises at every size, naming the shapes."""
+    M, N = 1144, 88
+    assert not cluster_fits(M, M, N, N, card)
+    assert smallest_cluster(M, M, N, N, card) == 0
+    assert cuda_solver(M, M, N, N, card) is pcg_stream
+    T = torch.zeros(1, M, M, device=card)
+    e = torch.zeros(1, M, dtype=torch.int32, device=card)
+    d = torch.ones(1, N, N, device=card)
+    before = pcg_cluster.launches
+    for K in (None, *CLUSTER_SIZES):
+        with pytest.raises(ValueError, match='M1=1144.*fit no cluster'):
+            pcg_cluster(T, e, e, e, e, d, d, d, torch.ones(1, device=card),
+                        8, cluster_size=K)
+    assert pcg_cluster.launches == before
+
+
+def test_cluster_gram_matches_edge(card):
+    """The value and gradient Grams of 6 molecules of 56-63 atoms run in
+    pcg_cluster alone (values, then the tangents of the chunk in one
+    launch) and match the edge backend."""
+    graphs = random_molecule_set(11, 6, n_atoms_range=(56, 64))
+    counters = (pcg_resident, pcg_packed, pcg_stream, pcg_cluster)
+    counts = [c.launches for c in counters]
+    K, dK = Normalization(_kernel(card))(graphs, eval_gradient=True)
+    after = [c.launches for c in counters]
+    assert after[:3] == counts[:3] and after[3] == counts[3] + 2
+    K_edge, dK_edge = Normalization(_kernel(card, 'edge'))(
+        graphs, eval_gradient=True)
+    np.testing.assert_allclose(K, K_edge, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(dK, dK_edge, rtol=0,
+                               atol=1e-3 * np.abs(dK_edge).max() + 1e-5)
 
 
 def test_large_molecules_run_resident(card):

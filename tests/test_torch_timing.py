@@ -232,9 +232,19 @@ def test_tangent_route_balances_groups(monkeypatch, k, fit, group):
 
 
 def test_tangent_route_beyond_a_block_streams(monkeypatch):
+    """Beyond a block and beyond a cluster, the tangents stream."""
     monkeypatch.setattr(_solver, 'resident_fits', lambda *a: False)
+    monkeypatch.setattr(_solver, 'cluster_fits', lambda *a: False)
     solve = cuda_tangent_solver(4, 64, 64, 72, 72, torch.device('cuda'))
     assert solve is _solver._stream_tangents
+
+
+def test_tangent_route_beyond_a_block_in_a_cluster(monkeypatch):
+    """Beyond a block, within a cluster: one pcg_cluster launch."""
+    monkeypatch.setattr(_solver, 'resident_fits', lambda *a: False)
+    monkeypatch.setattr(_solver, 'cluster_fits', lambda *a: True)
+    solve = cuda_tangent_solver(4, 192, 192, 72, 72, torch.device('cuda'))
+    assert solve is _solver._cluster_tangents
 
 
 def test_build_key_follows_included_headers(monkeypatch, tmp_path):
