@@ -45,7 +45,10 @@
 //   with a full copy of p in each CTA's shared memory. Pass 2, for the
 //   CTA's own product nodes (a contiguous 1/K of them):
 //       U[i1, i2] = sum_{q1 in side 1's row i1} W[q1, i2],
-//   reading W from whichever CTA holds row q1, in q1's order.
+//   reading W from whichever CTA holds row q1, in q1's order. (Summing
+//   each CTA's rows of a source first, so that pass 2 loads one part a
+//   CTA, made the 56-63-atom molecules slower on an H100: a step does not
+//   wait for these DSMEM loads.)
 // - CG state. x, r, diag and precond of a CTA's product nodes live in
 //   registers (NPT nodes a thread, one template instance each). After its
 //   r update a CTA writes its nodes' z = precond r into every CTA's copy of
@@ -347,12 +350,25 @@ pcg_cluster_kernel(Problem P) {
     __syncthreads();
     const int scan = max(e_hi - e_lo, 0) * M2;
     const float *Trows = Tg + static_cast<size_t>(e_lo) * M2;
-    for (int idx = tid; idx < scan; idx += kThreads) {
-        if (Trows[idx] != 0.f) {   // racing stores of the same 1
+    auto mark = [&](int idx, float t) {
+        if (t != 0.f) {   // racing stores of the same 1
             const int r = idx / M2;
             live1[e_lo + r] = 1;
             live2p[idx - r * M2] = 1;
         }
+    };
+    if ((M2 & 3) == 0) {   // rows of 16 bytes: T read 16 bytes a load
+        const float4 *T4 = reinterpret_cast<const float4 *>(Trows);
+        for (int v = tid; v < scan / 4; v += kThreads) {
+            const float4 t = T4[v];
+            mark(4 * v, t.x);
+            mark(4 * v + 1, t.y);
+            mark(4 * v + 2, t.z);
+            mark(4 * v + 3, t.w);
+        }
+    } else {
+        for (int idx = tid; idx < scan; idx += kThreads)
+            mark(idx, Trows[idx]);
     }
     cluster.sync();   // every CTA has started and written its flags
     for (int e = tid; e < M1; e += kThreads) {

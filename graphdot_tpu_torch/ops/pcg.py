@@ -265,8 +265,12 @@ def _validate(operands, device, maxiter, index_lists):
         raise ValueError('edge indices out of range of the node counts')
 
 
-def _check(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter):
-    """Validate the operands of both solvers; returns (P, M1, M2, N1, N2)."""
+def _check(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter,
+           op=None):
+    """Validate the operands of the resident, stream and cluster solvers:
+    P operators and S systems, system s on operator ``op[s]`` (``op`` [S]
+    int32 in [0, P); None: S = P, system p on operator p). Returns (S, M1,
+    M2, N1, N2)."""
     if T.dim() != 3:
         raise ValueError(f'T must be [P, M1, M2], got {tuple(T.shape)}')
     P, M1, M2 = T.shape
@@ -274,7 +278,16 @@ def _check(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter):
         raise ValueError(
             f'diag must be [P={P}, N1, N2], got {tuple(diag.shape)}')
     N1, N2 = diag.shape[1:]
-    _validate({
+    S = P
+    indices = [(esrc1, N1), (edst1, N1), (esrc2, N2), (edst2, N2)]
+    operands = {}
+    if op is not None:
+        if not isinstance(b, torch.Tensor) or b.dim() != 3:
+            raise ValueError('b must be a [S, N1, N2] torch.Tensor')
+        S = b.shape[0]
+        operands['op'] = (op, (S,), torch.int32)
+        indices.append((op, P))
+    operands.update({
         'esrc1': (esrc1, (P, M1), torch.int32),
         'edst1': (edst1, (P, M1), torch.int32),
         'esrc2': (esrc2, (P, M2), torch.int32),
@@ -282,11 +295,11 @@ def _check(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter):
         'T': (T, (P, M1, M2), torch.float32),
         'diag': (diag, (P, N1, N2), torch.float32),
         'precond': (precond, (P, N1, N2), torch.float32),
-        'b': (b, (P, N1, N2), torch.float32),
-        'tol': (tol, (P,), torch.float32),
-    }, T.device, maxiter,
-        ((esrc1, N1), (edst1, N1), (esrc2, N2), (edst2, N2)))
-    return P, M1, M2, N1, N2
+        'b': (b, (S, N1, N2), torch.float32),
+        'tol': (tol, (S,), torch.float32),
+    })
+    _validate(operands, T.device, maxiter, indices)
+    return S, M1, M2, N1, N2
 
 
 def _check_packed(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
@@ -361,40 +374,6 @@ def pcg_stream_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
                       maxiter)
 
 
-def _check_cluster(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
-                   maxiter, op):
-    """Validate the operands of the cluster solver: P operators, S systems
-    with ``op`` [S] int32 in [0, P) (None: S = P, system p on operator p);
-    returns (S, P, M1, M2, N1, N2)."""
-    if T.dim() != 3:
-        raise ValueError(f'T must be [P, M1, M2], got {tuple(T.shape)}')
-    if diag.dim() != 3 or diag.shape[0] != T.shape[0]:
-        raise ValueError(
-            f'diag must be [P={T.shape[0]}, N1, N2], got {tuple(diag.shape)}')
-    if not isinstance(b, torch.Tensor) or b.dim() != 3:
-        raise ValueError('b must be a [S, N1, N2] torch.Tensor')
-    P, M1, M2 = T.shape
-    N1, N2 = diag.shape[1:]
-    S = b.shape[0] if op is not None else P
-    operands = {
-        'esrc1': (esrc1, (P, M1), torch.int32),
-        'edst1': (edst1, (P, M1), torch.int32),
-        'esrc2': (esrc2, (P, M2), torch.int32),
-        'edst2': (edst2, (P, M2), torch.int32),
-        'T': (T, (P, M1, M2), torch.float32),
-        'diag': (diag, (P, N1, N2), torch.float32),
-        'precond': (precond, (P, N1, N2), torch.float32),
-        'b': (b, (S, N1, N2), torch.float32),
-        'tol': (tol, (S,), torch.float32),
-    }
-    indices = [(esrc1, N1), (edst1, N1), (esrc2, N2), (edst2, N2)]
-    if op is not None:
-        operands['op'] = (op, (S,), torch.int32)
-        indices.append((op, P))
-    _validate(operands, T.device, maxiter, indices)
-    return S, P, M1, M2, N1, N2
-
-
 def pcg_cluster_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
                           tol, maxiter, op=None):
     """Plain-torch twin of :func:`pcg_cluster`, with the same arguments and
@@ -405,8 +384,7 @@ def pcg_cluster_reference(T, esrc1, edst1, esrc2, edst2, diag, precond, b,
     :func:`pcg_stream_reference`: the operators that ``op`` names are
     gathered, then solved as that twin solves them. ``op`` None is
     ``arange(P)``."""
-    _check_cluster(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
-                   maxiter, op)
+    _check(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter, op)
     if op is not None:
         index = op.long()
         T, esrc1, edst1, esrc2, edst2, diag, precond = (
@@ -920,8 +898,8 @@ def pcg_cluster(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
     (``cudaOccupancyMaxActiveClusters``) or the launch fails. Nothing
     falls back to another kernel.
     """
-    S, P, M1, M2, N1, N2 = _check_cluster(
-        T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol, maxiter, op)
+    S, M1, M2, N1, N2 = _check(T, esrc1, edst1, esrc2, edst2, diag, precond,
+                               b, tol, maxiter, op)
     if cluster_size is not None and (
             not isinstance(cluster_size, int) or isinstance(cluster_size, bool)
             or cluster_size not in CLUSTER_SIZES):
