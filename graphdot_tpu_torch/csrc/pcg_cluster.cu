@@ -42,7 +42,11 @@
 //   read from device memory after that.
 // - The matvec in two passes. Pass 1, over the CTA's own rows q1:
 //       W[q1, i2] = sum_{q2 in side 2's row i2} T[q1, q2] p[dst1(q1), dst2(q2)]
-//   with a full copy of p in each CTA's shared memory. Pass 2, for the
+//   with a full copy of p in each CTA's shared memory. The lanes of a warp
+//   take consecutive rows q1 of one column i2: one trip count, dst2(q2)
+//   loaded once for the warp, and T's rows, p's rows and W (stored
+//   transposed) at odd strides, so that the lanes' loads of T and p and
+//   stores of W meet distinct banks. Pass 2, for the
 //   CTA's own product nodes (a contiguous 1/K of them):
 //       U[i1, i2] = sum_{q1 in side 1's row i1} W[q1, i2],
 //   reading W from whichever CTA holds row q1, in q1's order. (Summing
@@ -74,8 +78,9 @@
 // diag, precond and b) and x is written once: 4 M1 M2 bytes a system
 // against the 4 L1 L2 bytes a CG step that csrc/pcg_stream.cu streams. A CG
 // step is shared-memory work: each live T entry and the p it multiplies
-// are loaded once (8 bytes a multiply-add, with its side-2 destination)
-// against 128 bytes a clock of each SM's shared memory, then pass 2's
+// are loaded once (8 bytes a lane a multiply-add; the side-2 destination
+// is one broadcast a warp) against 128 bytes a clock of each SM's shared
+// memory, then pass 2's
 // L1 N2 DSMEM loads of W, the K-fold DSMEM stores of z and two cluster
 // barriers. Shared memory holds a CTA's ceil(M1 / K) x M2 floats of T,
 // W, two copies of the N1 N2 vector (p and z) and the edge lists; a pair
@@ -117,6 +122,10 @@ struct Problem {
 // region of T, which is loaded after the sort.
 struct Layout {
     long long rows;   // T rows a CTA holds at most: ceil(M1 / K)
+    // odd strides, so that the lanes of a warp, on consecutive rows of T
+    // (or nodes of side 1), meet distinct banks: T's rows, W's columns
+    // (W is stored [N2][rows]), p's and z's rows
+    long long ldT, ldW, ldp;
     long long T, W, p, z, rowptr1, src1s, dst1s, perm1, live1, rowptr2,
         dst2s, pos2, live2, live2p, slots, warps, gather, words;
 };
@@ -131,16 +140,18 @@ __host__ __device__ inline Layout make_layout(int K, int M1, int M2, int N1,
                                               int N2) {
     Layout L;
     long long o = 0;
-    const long long N = static_cast<long long>(N1) * N2;
     L.rows = (M1 + K - 1) / K;
+    L.ldT = M2 | 1;
+    L.ldW = L.rows | 1;
+    L.ldp = N2 | 1;
     const long long hist1 = static_cast<long long>((M1 + 31) / 32) * N1;
     const long long hist2 = static_cast<long long>((M2 + 31) / 32) * N2;
     const long long hist = hist1 > hist2 ? hist1 : hist2;
-    const long long tile = L.rows * M2;
+    const long long tile = L.rows * L.ldT;
     L.T = take(o, tile > hist ? tile : hist);
-    L.W = take(o, L.rows * N2);
-    L.p = take(o, N);
-    L.z = take(o, N);
+    L.W = take(o, N2 * L.ldW);
+    L.p = take(o, N1 * L.ldp);
+    L.z = take(o, N1 * L.ldp);
     L.rowptr1 = take(o, N1 + 1);
     L.src1s = take(o, M1);
     L.dst1s = take(o, M1);
@@ -315,6 +326,8 @@ pcg_cluster_kernel(Problem P) {
     const int M1 = P.M1, M2 = P.M2, N1 = P.N1, N2 = P.N2;
     const int N = N1 * N2;
     const Layout L = make_layout(K, M1, M2, N1, N2);
+    const int ldT = static_cast<int>(L.ldT), ldW = static_cast<int>(L.ldW),
+              ldp = static_cast<int>(L.ldp);
     extern __shared__ __align__(16) float smem[];
     float *Ts = smem + L.T;
     float *W = smem + L.W;
@@ -400,23 +413,33 @@ pcg_cluster_kernel(Problem P) {
         const int e2 = idx - rl * M2;
         const int k = pos2[e2];
         if (k >= 0)
-            cp_async4(Ts + rl * M2 + k,
+            cp_async4(Ts + rl * ldT + k,
                       Tg + static_cast<size_t>(perm1[q0 + rl]) * M2 + e2);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-    // ---- p = precond b everywhere; the CTA's nodes' state in registers ----
-    for (int j = tid; j < N; j += kThreads) p[j] = pc_g[j] * b_g[j];
+    // ---- p = precond b everywhere (0 on the rows' padding, and z 0); the
+    // CTA's nodes' state in registers, with each node's place in p ------
+    for (int t = tid; t < N1 * ldp; t += kThreads) {
+        const int i1 = t / ldp;
+        const int i2 = t - i1 * ldp;
+        p[t] = i2 < N2 ? pc_g[i1 * N2 + i2] * b_g[i1 * N2 + i2] : 0.f;
+        zc[t] = 0.f;
+    }
     const int own = (N + K - 1) / K;
     const int lo = c * own;
     const int hi = min(N, lo + own);
     float x[NPT], r[NPT], dg[NPT], pc[NPT];
+    int at[NPT];
     float rz = 0.f, rr = 0.f;
 #pragma unroll
     for (int s = 0; s < NPT; ++s) {
         const int j = lo + tid + s * kThreads;
         x[s] = r[s] = dg[s] = pc[s] = 0.f;
+        at[s] = 0;
         if (j < hi) {
+            const int i1 = j / N2;
+            at[s] = i1 * ldp + (j - i1 * N2);
             const float bi = b_g[j];
             pc[s] = pc_g[j];
             dg[s] = dg_g[j];
@@ -450,19 +473,21 @@ pcg_cluster_kernel(Problem P) {
 #pragma unroll
         for (int s = 0; s < NPT; ++s) {
             const int j = lo + tid + s * kThreads;
-            if (j < hi) pAp += p[j] * (dg[s] * p[j]);
+            if (j < hi) pAp += p[at[s]] * (dg[s] * p[at[s]]);
         }
+        // the lanes of a warp on consecutive rows, one column i2: one
+        // trip count, side 2's destination read once for the warp
         for (int idx = tid; idx < R * N2; idx += kThreads) {
-            const int rl = idx / N2;
-            const int i2 = idx - rl * N2;
+            const int i2 = idx / R;
+            const int rl = idx - i2 * R;
             const int k0 = rowptr2[i2], k1 = rowptr2[i2 + 1];
-            const float *trow = Ts + rl * M2;
-            const float *prow = p + dst1s[q0 + rl] * N2;
+            const float *trow = Ts + rl * ldT;
+            const float *prow = p + dst1s[q0 + rl] * ldp;
             float acc = 0.f;
             for (int k = k0; k < k1; ++k)
                 acc = fmaf(trow[k], prow[dst2s[k]], acc);
-            W[idx] = acc;
-            pAp -= p[src1s[q0 + rl] * N2 + i2] * acc;
+            W[i2 * ldW + rl] = acc;
+            pAp -= p[src1s[q0 + rl] * ldp + i2] * acc;
         }
         block_sum(pAp, unused, warps);
         if (tid == 0) slots[0] = pAp;
@@ -490,10 +515,10 @@ pcg_cluster_kernel(Problem P) {
                 float u = 0.f;
                 for (int q = rowptr1[i1]; q < rowptr1[i1 + 1]; ++q) {
                     const int rank = q / Rl;
-                    u += cluster.map_shared_rank(W, rank)[(q - rank * Rl) *
-                                                          N2 + i2];
+                    u += cluster.map_shared_rank(W, rank)[i2 * ldW + q -
+                                                          rank * Rl];
                 }
-                const float pj = p[j];
+                const float pj = p[at[s]];
                 const float ap = dg[s] * pj - u;
                 x[s] += alpha * pj;
                 const float ri = r[s] - alpha * ap;
@@ -502,7 +527,7 @@ pcg_cluster_kernel(Problem P) {
                 rz_new += ri * zi;
                 rr += ri * ri;
                 for (int d = 0; d < K; ++d)
-                    cluster.map_shared_rank(zc, d)[j] = zi;
+                    cluster.map_shared_rank(zc, d)[at[s]] = zi;
             }
         }
         block_sum(rz_new, rr, warps);
@@ -522,7 +547,8 @@ pcg_cluster_kernel(Problem P) {
             break;
         }
         const float beta = rz_new / rz;
-        for (int j = tid; j < N; j += kThreads) p[j] = zc[j] + beta * p[j];
+        for (int t = tid; t < N1 * ldp; t += kThreads)
+            p[t] = zc[t] + beta * p[t];
         rz = rz_new;
         __syncthreads();   // the next pass 1 gathers p anywhere
     }
