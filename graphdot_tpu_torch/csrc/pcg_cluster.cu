@@ -29,17 +29,18 @@
 // - Live edges. An edge is live when its row (side 1) or column (side 2)
 //   of T holds a nonzero, the rule of csrc/pcg_stream.cu: a dead edge adds
 //   exactly 0. CTA c scans T's rows [c R, (c + 1) R), R = ceil(M1 / K), once
-//   from device memory; the CTAs then read each other's row flags and OR
-//   their column flags through distributed shared memory (DSMEM).
+//   from device memory, a warp a row; the CTAs then read each other's row
+//   flags and OR their column flags through distributed shared memory
+//   (DSMEM).
 // - Sort. Every CTA sorts both sides' live edges by source with a stable
 //   counting sort in O(M + M N / 32) work a side: each warp ranks 32 edges
 //   among equal sources (__match_any_sync), a scan over the chunks and the
 //   nodes gives each edge its place. The order within a node is edge order,
 //   as in the plain twin.
 // - T on chip. CTA c holds the live sorted rows [c Rl, (c + 1) Rl), Rl =
-//   ceil(L1 / K), of T: one coalesced read of each row, scattered by 4-byte
-//   cp.async into the column order sorted by side-2 source. Nothing of T is
-//   read from device memory after that.
+//   ceil(L1 / K), of T: one coalesced read of each row by a warp, scattered
+//   by 4-byte cp.async into the column order sorted by side-2 source.
+//   Nothing of T is read from device memory after that.
 // - The matvec in two passes. Pass 1, over the CTA's own rows q1:
 //       W[q1, i2] = sum_{q2 in side 2's row i2} T[q1, q2] p[dst1(q1), dst2(q2)]
 //   with a full copy of p in each CTA's shared memory. The lanes of a warp
@@ -361,27 +362,39 @@ pcg_cluster_kernel(Problem P) {
     for (int i = tid; i < M2; i += kThreads) live2p[i] = 0;
     for (int i = e_lo + tid; i < e_hi; i += kThreads) live1[i] = 0;
     __syncthreads();
-    const int scan = max(e_hi - e_lo, 0) * M2;
-    const float *Trows = Tg + static_cast<size_t>(e_lo) * M2;
-    auto mark = [&](int idx, float t) {
-        if (t != 0.f) {   // racing stores of the same 1
-            const int r = idx / M2;
-            live1[e_lo + r] = 1;
-            live2p[idx - r * M2] = 1;
+    // a warp a row, its lanes along the row; T read 16 bytes a load where
+    // the rows are 16-byte aligned. Racing stores of the same 1
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const bool by4 = (M2 & 3) == 0 &&
+                     (reinterpret_cast<size_t>(Tg) & 15) == 0;
+    for (int e1 = e_lo + warp; e1 < e_hi; e1 += kWarps) {
+        const float *row = Tg + static_cast<size_t>(e1) * M2;
+        int any = 0;
+        if (by4) {
+            const float4 *row4 = reinterpret_cast<const float4 *>(row);
+#pragma unroll 4
+            for (int v = lane; v < M2 / 4; v += 32) {
+                const float4 t = row4[v];
+                const float ts[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    if (ts[u] != 0.f) {
+                        live2p[4 * v + u] = 1;
+                        any = 1;
+                    }
+                }
+            }
+        } else {
+#pragma unroll 4
+            for (int e2 = lane; e2 < M2; e2 += 32) {
+                if (row[e2] != 0.f) {
+                    live2p[e2] = 1;
+                    any = 1;
+                }
+            }
         }
-    };
-    if ((M2 & 3) == 0) {   // rows of 16 bytes: T read 16 bytes a load
-        const float4 *T4 = reinterpret_cast<const float4 *>(Trows);
-        for (int v = tid; v < scan / 4; v += kThreads) {
-            const float4 t = T4[v];
-            mark(4 * v, t.x);
-            mark(4 * v + 1, t.y);
-            mark(4 * v + 2, t.z);
-            mark(4 * v + 3, t.w);
-        }
-    } else {
-        for (int idx = tid; idx < scan; idx += kThreads)
-            mark(idx, Trows[idx]);
+        if (__any_sync(0xffffffffu, any) && lane == 0) live1[e1] = 1;
     }
     cluster.sync();   // every CTA has started and written its flags
     for (int e = tid; e < M1; e += kThreads) {
@@ -407,14 +420,15 @@ pcg_cluster_kernel(Problem P) {
     const int q0 = c * Rl;
     const int R = max(0, min(L1, q0 + Rl) - q0);
 
-    // ---- the CTA's live rows of T, columns in side 2's sorted order -------
-    for (int idx = tid; idx < R * M2; idx += kThreads) {
-        const int rl = idx / M2;
-        const int e2 = idx - rl * M2;
-        const int k = pos2[e2];
-        if (k >= 0)
-            cp_async4(Ts + rl * ldT + k,
-                      Tg + static_cast<size_t>(perm1[q0 + rl]) * M2 + e2);
+    // ---- the CTA's live rows of T, columns in side 2's sorted order: a
+    // warp a row, its lanes along the row ------------------------------
+    for (int rl = warp; rl < R; rl += kWarps) {
+        const float *src = Tg + static_cast<size_t>(perm1[q0 + rl]) * M2;
+        float *dst = Ts + rl * ldT;
+        for (int e2 = lane; e2 < M2; e2 += 32) {
+            const int k = pos2[e2];
+            if (k >= 0) cp_async4(dst + k, src + e2);
+        }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 
@@ -513,10 +527,21 @@ pcg_cluster_kernel(Problem P) {
                 const int i1 = j / N2;
                 const int i2 = j - i1 * N2;
                 float u = 0.f;
-                for (int q = rowptr1[i1]; q < rowptr1[i1 + 1]; ++q) {
-                    const int rank = q / Rl;
-                    u += cluster.map_shared_rank(W, rank)[i2 * ldW + q -
-                                                          rank * Rl];
+                const int q_lo = rowptr1[i1], q_hi = rowptr1[i1 + 1];
+                if (q_hi > q_lo) {
+                    int rank = q_lo / Rl;
+                    int local = q_lo - rank * Rl;
+                    const float *w =
+                        cluster.map_shared_rank(W, rank) + i2 * ldW;
+#pragma unroll 4
+                    for (int q = q_lo; q < q_hi; ++q, ++local) {
+                        if (local == Rl) {   // the next CTA's rows
+                            w = cluster.map_shared_rank(W, ++rank) +
+                                i2 * ldW;
+                            local = 0;
+                        }
+                        u += w[local];
+                    }
                 }
                 const float pj = p[at[s]];
                 const float ap = dg[s] * pj - u;
