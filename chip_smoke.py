@@ -84,8 +84,15 @@ and checks every part of them:
    of the first protein chunk and on a lone protein pair, each pair split
    over the default C CTAs (``stream_ctas_per_pair``) and over one, two
    runs at the default C bitwise equal, and against ``pcg_resident`` on
-   the first 512 pairs of the (24, 24) molecule chunk: max |dx| <= 1e-5 *
-   max |x| for all;
+   the first 512 pairs of the (24, 24) molecule chunk; then against the
+   twin, at the default C and at C = 3, each run twice and bitwise equal,
+   on the kernel's edge cases: the lone protein pair with dead edges added
+   (``testing.with_dead_edges``: M2 % 4 == 3, so T's rows lie at every
+   4-byte offset; and dead edges between live ones on both sides), 3
+   molecules against a graph with a node of degree 36 and one of degree
+   0 (``testing.hub_molecule_graph``), and G + 8 pairs of the (24, 24)
+   chunk (G the cooperative grid), whose two launches take different C:
+   max |dx| <= 1e-5 * max |x| for all;
 24. (run after 6) ``pcg_cluster`` on the mid-size chunks as the main path
     builds them (phase 8's 56-63 and 48-71-atom molecules, one batch each;
     the first chunk of the QM7 Gram's factory group of m = 352, phase 23):
@@ -118,9 +125,13 @@ and checks every part of them:
    ``pcg_cluster``'s prologue and cost a step; timings with CUDA events,
    in turns (C = 1, default, default, C = 1):
    ``pcg_stream`` on one protein chunk and on a lone protein pair, beside
-   the twin on both; ``pcg_stream`` and ``pcg_resident`` on the (24, 24)
-   molecule chunk, the CG steps of both; the protein Gram's wall time per
-   build,
+   the twin on both, its shared-memory plan, and its prologue (maxiter 0:
+   the live-flag scan, the sort and the solve's set-up) and cost a step
+   (``step_split``, device time); ``pcg_stream`` and ``pcg_resident`` on
+   the (24, 24) molecule chunk, the CG steps of both; the protein Gram's
+   wall time per build, its peak device memory
+   (``torch.cuda.max_memory_allocated``) and the ``pcg_stream``
+   workspace's bytes beside T's,
    and one profiled protein build (``torch.profiler``);
 10. ``pcg_packed`` against its twin: (a) the tangent groups (k = 4, one
     shared operator, as the main path groups them) of every gradient chunk
@@ -2292,14 +2303,13 @@ def midsize_chunks():
 
 
 def stream_launches_a_call(args):
-    """The kernels one ``pcg_stream`` call launches on these operands: two
-    live-flag scans, the sort and the permuted copy of T, then one
-    cooperative grid for every ``grid // C`` pairs."""
-    from graphdot_tpu_torch.ops.pcg import stream_ctas_per_pair, stream_grid
+    """The kernels one ``pcg_stream`` call launches on these operands: the
+    live-flag scan and the sort, then one cooperative grid for each launch
+    of ``stream_launch_plan``."""
+    from graphdot_tpu_torch.ops.pcg import stream_grid, stream_launch_plan
     T, diag = args[0], args[5]
     grid = stream_grid(*T.shape[1:], *diag.shape[1:], T.device)
-    C = stream_ctas_per_pair(T.shape[0], diag.shape[1], grid)
-    return 4 + math.ceil(T.shape[0] / (grid // C))
+    return 2 + len(stream_launch_plan(T.shape[0], diag.shape[1], grid))
 
 
 def cluster_phase(chunks):
@@ -3135,13 +3145,16 @@ def main():
     from graphdot_tpu_torch.microkernel import (
         KroneckerDelta, SquareExponential, TensorProduct)
     from graphdot_tpu_torch.ops import _build
+    from graphdot_tpu_torch.graph import Graph
     from graphdot_tpu_torch.ops.pcg import (
         group_pairs, kernel_occupancy, largest_packed_k, pcg_cluster,
         pcg_packed, pcg_packed_reference,
         pcg_resident, pcg_resident_reference, pcg_stream,
-        pcg_stream_reference)
+        pcg_stream_reference, stream_grid, stream_launch_plan, stream_plan,
+        stream_workspace_bytes)
     from graphdot_tpu_torch.testing import (
-        protein_niche_set, random_molecule_set)
+        hub_molecule_graph, protein_niche_set, random_molecule_set,
+        with_dead_edges)
 
     say('== 1. device')
     card = nvidia_smi()
@@ -3435,6 +3448,60 @@ def main():
           f'{N_COMPARE} molecule pairs of the (24, 24) chunk: max '
           f'|x_stream - x_resident| = '
           f'{err:.3e} <= 1e-5 * max |x| = {1e-5 * scale:.3e}')
+    del x_s, x_k
+    # the kernel's edge cases: rows of T at every 4-byte offset, dead edges
+    # between live ones, a side-2 node of degree above 32 and one of 0, and
+    # launches of different C
+    hub_mols = random_molecule_set(3, 3, n_atoms_range=(8, 14))
+    hub_graph = Graph.unify_datatype([hub_molecule_graph(5)])
+    hb1, hbd1, _ = kernel._prepare_batch(hub_mols)
+    hb2, hbd2, _ = kernel._prepare_batch(hub_graph)
+    h_idx = torch.arange(3, device='cuda')
+    hub_args = systems(kernel, hbd1, hbd2, h_idx, torch.zeros_like(h_idx),
+                       kernel.maxiter(max(hb1.node_mask.shape[1],
+                                          hb2.node_mask.shape[1])))
+    live2 = (hub_args[0] != 0).any(dim=1)[0]
+    degree = torch.bincount(hub_args[3][0][live2].long(),
+                            minlength=hub_args[5].shape[2])
+    sq_grid = stream_grid(*args[0].shape[1:], *args[5].shape[1:], 'cuda')
+    sq_pairs = sq_grid + 8
+    sq_plan = stream_launch_plan(sq_pairs, args[5].shape[1], sq_grid)
+    edge_cases = {
+        'the lone protein pair with M2 % 4 == 3':
+        with_dead_edges(lone[:-1], 'odd_m2') + [lone[-1]],
+        'the lone protein pair with dead edges between live ones':
+        with_dead_edges(lone[:-1], 'dead_between') + [lone[-1]],
+        f'3 molecules against a graph with side-2 degrees '
+        f'{int(degree.max())} and 0':
+        hub_args,
+        f'{sq_pairs} pairs of the (24, 24) chunk, launches {sq_plan}':
+        chunk_systems(square[0], square[1][:sq_pairs],
+                      square[2][:sq_pairs]),
+    }
+    check(edge_cases['the lone protein pair with M2 % 4 == 3'][0].shape[2]
+          % 4 == 3 and int(degree.max()) > 32
+          and int((degree == 0).sum()) > 0
+          and len({C for _, C in sq_plan}) > 1,
+          'the edge cases hold: M2 % 4 == 3, a side-2 node of degree > 32 '
+          'and one of 0, two launches of different C')
+    for what, sys_args in edge_cases.items():
+        x_r, it_r = pcg_stream_reference(*sys_args)
+        scale = float(x_r.abs().max())
+        for ctas in (None, 3):
+            x_a, it_a = pcg_stream(*sys_args, ctas_per_pair=ctas)
+            used = pcg_stream.last_ctas_per_pair
+            x_b, it_b = pcg_stream(*sys_args, ctas_per_pair=ctas)
+            torch.cuda.synchronize()
+            err = float((x_a - x_r).abs().max())
+            stream_err = max(stream_err, err)
+            check(bool(torch.isfinite(x_a).all()) and err <= 1e-5 * scale
+                  and torch.equal(x_a, x_b) and torch.equal(it_a, it_b),
+                  f'{what}, C = {used} (first launch): max |x_stream - '
+                  f'x_twin| = {err:.3e} <= 1e-5 * max |x| = '
+                  f'{1e-5 * scale:.3e}, two runs bitwise equal; CG steps '
+                  f'mean {float(it_a.float().mean()):.3f}, twin '
+                  f'{float(it_r.float().mean()):.3f}')
+    del x_a, x_b, x_r, edge_cases
 
     say('== 24. pcg_cluster: build and twin checks on the mid-size chunks')
     build_report('pcg_cluster')
@@ -3554,6 +3621,18 @@ def main():
             f'({bound[1]}), T streamed once a step {bound[2]:.4f} ms')
     lone_ctas = used
     lone_device_ms = device_ms(lambda: pcg_stream(*lone), 10, 'stream')
+    stream_split = {}
+    for what, sys_args in (('chunk', p_args), ('lone', lone)):
+        stream_split[what] = step_split(pcg_stream, sys_args, 'stream',
+                                        steps=(4, 8))
+        say(f'  pcg_stream, {what}: device time by part (the prologue at '
+            f'maxiter 0: live flags, sort, set-up) {stream_split[what]}')
+    p_shapes = (*p_args[0].shape[1:], *p_args[5].shape[1:])
+    s_plan = stream_plan(*p_shapes, 'cuda')
+    s_work = stream_workspace_bytes(p_args[0].shape[0], *p_shapes, 'cuda')
+    t_bytes = p_args[0].numel() * p_args[0].element_size()
+    say(f'  pcg_stream plan {s_plan}; workspace of the chunk '
+        f'{s_work / 1e6:.3f} MB beside T\'s {t_bytes / 1e6:.3f} MB')
     say(f'  lone pair at C = {lone_ctas}: device time of the call\'s kernels '
         f'{lone_device_ms} ms')
     stream_ms = float(np.mean(stream_times['chunk', None]))
@@ -3581,6 +3660,9 @@ def main():
     say(f'  normalized protein Gram build: median {wall * 1e3:.3f} ms over '
         f'{PROTEIN_REPEATS} ({", ".join(f"{w * 1e3:.3f}" for w in walls)});'
         f' {p_pairs / wall:.2f} pairs/s at the median')
+    protein_peak = held_bytes(lambda: Normalization(pkernel)(proteins))
+    say(f'  peak device memory of a protein Gram build: '
+        f'{protein_peak / 1e9:.4f} GB above what was held before it')
     profile_build(lambda: Normalization(pkernel)(proteins), 'protein')
 
     say('== 10. pcg_packed against its twin')
@@ -4022,6 +4104,9 @@ def main():
         'bound_by': stream_bound[1], 'library_ms': None,
         'ctas_per_pair': stream_ctas, 'stream_floor_ms': stream_bound[2],
         'ms_ctas_1': float(np.mean(stream_times['chunk', 1])),
+        'split': stream_split['chunk'], 'plan': s_plan,
+        'workspace_bytes': s_work, 'T_bytes': t_bytes,
+        'protein_gram_peak_bytes': protein_peak,
         'lone_pair': {
             'ctas_per_pair': lone_ctas,
             'ms': float(np.mean(stream_times['lone', None])),
@@ -4029,7 +4114,8 @@ def main():
             'device_ms': lone_device_ms,
             'plain_ms': stream_times['lone', 'plain'],
             'bound_ms': stream_times['lone', 'bound'][0],
-            'stream_floor_ms': stream_times['lone', 'bound'][2]},
+            'stream_floor_ms': stream_times['lone', 'bound'][2],
+            'split': stream_split['lone']},
         'launches_by_path': by_path('pcg_stream'),
     }, {
         'name': 'pcg_packed', 'route': 'cuda',

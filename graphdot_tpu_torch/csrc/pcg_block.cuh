@@ -32,7 +32,7 @@
 //
 // - Live edges only. An edge is live when its row of T (side 1) or its
 //   column of T (side 2) holds a nonzero, the rule of pcg_stream.cu's
-//   stream_live_rows/cols_kernel. Only live edges enter the CSR layout by
+//   stream_live_kernel. Only live edges enter the CSR layout by
 //   source, so the batch's padding edges (T = 0, all with source 0) no
 //   longer pile into node 0's rows. Exact: a dead edge adds 0 everywhere.
 // - Live node extent. Side 1's extent n1 is 1 + the largest node index

@@ -32,11 +32,11 @@
 //   from device memory, a warp a row; the CTAs then read each other's row
 //   flags and OR their column flags through distributed shared memory
 //   (DSMEM).
-// - Sort. Every CTA sorts both sides' live edges by source with a stable
-//   counting sort in O(M + M N / 32) work a side: each warp ranks 32 edges
-//   among equal sources (__match_any_sync), a scan over the chunks and the
-//   nodes gives each edge its place. The order within a node is edge order,
-//   as in the plain twin.
+// - Sort. Every CTA sorts both sides' live edges by source with the stable
+//   counting sort of csrc/edge_sort.cuh in O(M + M N / 32) work a side:
+//   each warp ranks 32 edges among equal sources (__match_any_sync), a scan
+//   over the chunks and the nodes gives each edge its place. The order
+//   within a node is edge order, as in the plain twin.
 // - T on chip. CTA c holds the live sorted rows [c Rl, (c + 1) Rl), Rl =
 //   ceil(L1 / K), of T: one coalesced read of each row by a warp, scattered
 //   by 4-byte cp.async into the column order sorted by side-2 source.
@@ -91,6 +91,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "edge_sort.cuh"
 #include "pcg_block.cuh"
 
 namespace cg = cooperative_groups;
@@ -237,75 +238,6 @@ __device__ __forceinline__ void cluster_sum(cg::cluster_group &cluster,
     }
 }
 
-// Stable counting sort of one side's live edges by source over n nodes:
-// rowptr (n + 1), and for each live edge e at its place `at`: src_s[at],
-// dst_s[at], perm[at] = e, pos[e] = at (pos[e] = -1 for a dead edge); any
-// of the four may be null. Each warp takes chunks of 32 edges; a lane's
-// rank among the chunk's edges of its source is the count of lower lanes
-// with that source (__match_any_sync), `hist` [chunks, n] holds each
-// chunk's counts and then their exclusive scan over the chunks. src and
-// dst are the operator's edge lists in device memory.
-__device__ void sort_side(const int *src, const int *dst, const int *live,
-                          int M, int n, int *rowptr, int *src_s, int *dst_s,
-                          int *perm, int *pos, int *hist) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int chunks = (M + 31) / 32;
-    for (int i = threadIdx.x; i < chunks * n; i += kThreads) hist[i] = 0;
-    __syncthreads();
-    for (int ch = warp; ch < chunks; ch += kWarps) {
-        const int e = ch * 32 + lane;
-        const int key = (e < M && live[e]) ? src[e] : -1;
-        const unsigned peers = __match_any_sync(0xffffffffu, key);
-        if (key >= 0 && lane == __ffs(peers) - 1)
-            hist[ch * n + key] = __popc(peers);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-        int run = 0;
-        for (int ch = 0; ch < chunks; ++ch) {
-            const int v = hist[ch * n + i];
-            hist[ch * n + i] = run;
-            run += v;
-        }
-        rowptr[i] = run;   // the node's count, scanned below
-    }
-    __syncthreads();
-    if (warp == 0) {
-        int carry = 0;
-        for (int base = 0; base < n; base += 32) {
-            const int i = base + lane;
-            const int v = i < n ? rowptr[i] : 0;
-            int incl = v;
-#pragma unroll
-            for (int d = 1; d < 32; d <<= 1) {
-                const int u = __shfl_up_sync(0xffffffffu, incl, d);
-                if (lane >= d) incl += u;
-            }
-            if (i < n) rowptr[i] = carry + incl - v;
-            carry += __shfl_sync(0xffffffffu, incl, 31);
-        }
-        if (lane == 0) rowptr[n] = carry;
-    }
-    __syncthreads();
-    for (int ch = warp; ch < chunks; ch += kWarps) {
-        const int e = ch * 32 + lane;
-        const int key = (e < M && live[e]) ? src[e] : -1;
-        const unsigned peers = __match_any_sync(0xffffffffu, key);
-        if (key >= 0) {
-            const int at = rowptr[key] + hist[ch * n + key] +
-                           __popc(peers & ((1u << lane) - 1u));
-            if (src_s) src_s[at] = key;
-            if (dst_s) dst_s[at] = dst[e];
-            if (perm) perm[at] = e;
-            if (pos) pos[e] = at;
-        } else if (e < M && pos) {
-            pos[e] = -1;
-        }
-    }
-    __syncthreads();
-}
-
 __device__ __forceinline__ void cp_async4(void *smem, const void *gmem) {
     const unsigned s =
         static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -411,10 +343,10 @@ pcg_cluster_kernel(Problem P) {
 
     // ---- both sides' live edges sorted by source --------------------------
     int *hist = reinterpret_cast<int *>(Ts);
-    sort_side(es1, ed1, live1, M1, N1, rowptr1, src1s, dst1s, perm1,
-              nullptr, hist);
-    sort_side(es2, ed2, live2, M2, N2, rowptr2, nullptr, dst2s, nullptr,
-              pos2, hist);
+    graphdot_sort::sort_side<kThreads>(es1, ed1, live1, M1, N1, rowptr1,
+                                       src1s, dst1s, perm1, nullptr, hist);
+    graphdot_sort::sort_side<kThreads>(es2, ed2, live2, M2, N2, rowptr2,
+                                       nullptr, dst2s, nullptr, pos2, hist);
     const int L1 = rowptr1[N1];
     const int Rl = (L1 + K - 1) / K;      // live rows a CTA holds
     const int q0 = c * Rl;

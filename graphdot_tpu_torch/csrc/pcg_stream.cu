@@ -1,10 +1,11 @@
 // Streaming Jacobi-PCG over marginalized-graph-kernel product systems whose
-// pair does not fit a block's shared memory, each pair spread over C CTAs
-// of one cooperative grid, for NVIDIA Hopper (sm_90a).
+// pair fits neither a block nor a thread-block cluster (the protein contact
+// maps), each pair spread over C CTAs of one cooperative grid, for NVIDIA
+// Hopper (sm_90a).
 //
 // Replaces graphdot_tpu/ops/pallas_pcg.py::_pcg_stream_kernel (reached
-// through `pallas_pcg_stream` and `_stream_solver`). It solves the same
-// system as csrc/pcg_resident.cu,
+// through `pallas_pcg_stream` and `_stream_solver`) for the pairs beyond a
+// cluster; csrc/pcg_cluster.cu takes the mid-size ones. It solves
 //
 //     [diag o Y - S1^T (T o (D1 Y D2^T)) S2] = b      (Y is N1 x N2)
 //
@@ -15,79 +16,116 @@
 //     out[i1,i2] = sum_{e1: src1(e1)=i1} sum_{e2: src2(e2)=i2}
 //                  T[e1,e2] * y[dst1(e1), dst2(e2)]
 //
-// Four kernels run on the stream, one after the other:
+// Three kernels run on the stream, one after the other:
 //
-// 1. `stream_live_cols_kernel` and `stream_live_rows_kernel` mark the
-//    edges whose column or row of T holds a nonzero. The others (the
-//    batch's padding edges, T = 0) add nothing, and are left out of the
-//    solve: this keeps a graph's padding out of node 0's edge list, where
-//    one thread would otherwise walk all of it, and out of the stream.
-// 2. `stream_sort_kernel`, one CTA per pair: a stable counting sort of
-//    each side's live edges by source (one thread per node scans the edge
-//    list in order), giving the sorted sources and destinations, the
-//    permutations, both sides' row pointers and the live counts L1, L2.
-// 3. `stream_permute_kernel`: one pass over T that writes
-//    Tp[k1,k2] = T[perm1[k1], perm2[k2]] for the live edges, rows padded
-//    to a multiple of four floats, so that rows sharing a side-1 source
-//    and columns sharing a side-2 source are contiguous and every tile is
-//    16-byte aligned.
-// 4. `pcg_stream_kernel`, launched cooperatively (cudaLaunchCooperative-
-//    Kernel) with C CTAs per pair, runs the whole PCG. CTA c of a pair
-//    owns a contiguous range [a_c, a_{c+1}) of side-1 source nodes, cut
-//    at the node where rowptr1[i] + i (live edges plus nodes before i)
-//    reaches c / C of L1 + N1, so the ranges balance the live edges and
-//    spread edge-less nodes too. The CTA owns rows a_c..a_{c+1} of the CG
-//    vectors (x, r, p and out/Ap, N1 x N2 floats each, in the caller's
-//    workspace) and streams only the sorted rows of Tp whose source lies
-//    in its range, in tiles of TR rows by TC columns, double-buffered
-//    with cp.async, once per CG step, together with the rows of p the
-//    tile's rows gather from. Per tile, pass 1 computes
-//        W[r, i2] = sum_{k in row i2 of side 2, k in the tile}
-//                   Tp[r, k] * p[dst1s(r), dst2s(k)]
-//    and pass 2 adds W over each run of rows with one side-1 source into
-//    out[src1s(r), i2]; one thread owns each column i2 of a tile, and
-//    every source of the CTA's rows is one it owns, so the sums need no
-//    atomics. A row longer than a tile is cut into column tiles, so no
-//    edge count is too large; the bound is N2 (see below).
+// 1. `stream_live_kernel` reads T once, 32 rows by 1024 columns a block,
+//    and ORs both live flags: an edge is live when its row (side 1) or
+//    column (side 2) of T holds a nonzero. The others (the batch's padding
+//    edges, T = 0) add nothing and are left out of the solve. Flags are
+//    set by stores of 1 over zeroed arrays, an integer OR whatever the
+//    order. This is the only read of T before the first CG step.
+// 2. `stream_sort_kernel`, a CTA a side of each pair: the stable counting
+//    sort of csrc/edge_sort.cuh (shared with csrc/pcg_cluster.cu; warps
+//    rank 32 edges at once with __match_any_sync, edge order kept within a
+//    node) of each side's live edges by source, into sorted sources,
+//    destinations, permutations and row pointers, its counts in shared
+//    memory where they fit and in the workspace otherwise. Side 2's sorted
+//    list is packed as (column of T, destination) in 16 bits each, and its
+//    live columns' span [lo, hi] is kept. No copy of T is made.
+// 3. `pcg_stream_kernel`, launched cooperatively with C CTAs per pair (C
+//    chosen per launch by the caller), runs the whole PCG. CTA c of a pair
+//    owns a contiguous range [a_c, a_{c+1}) of side-1 source nodes, cut at
+//    the node where rowptr1[i] + i reaches c / C of L1 + N1, and the sorted
+//    live rows of T whose source lies in it. The CG vectors (x, r, z, U,
+//    and p twice) live in the workspace with rows padded to ldv (a multiple
+//    of 4) floats.
 //
-// A CG step has three grid barriers (cooperative_groups grid.sync()):
-// after each CTA has written its block sum of pAp into its slot of the
-// workspace; after its sums of rz and r.r; and after its rows of p are
-// updated, because the next matvec gathers rows of p that other CTAs
-// wrote. After a barrier every CTA of a pair adds the pair's C partials in
-// CTA order (one warp, lanes in a fixed order, then a butterfly), so all
-// of them get bit-identical alpha, beta and stop decisions, and the
-// result is deterministic for a given C. Every CTA of the grid meets every
-// barrier: a pair that has converged or broken down stops computing but
-// goes on meeting them, and the loop ends for the whole grid when the
-// count of finished pairs (in the workspace, raised between two barriers
-// and read only between the next two) reaches the grid's pair count, or
-// at maxiter. The CG vectors written by other CTAs are read only through
-// L2 (cp.async.cg, ld.global.cg), never through L1 or the read-only path.
-// More pairs than fit one grid run in several launches of C = 1.
+// The matvec streams T in place. The CTA's rows go through a ring of NS
+// >= 3 stages of R rows in shared memory. Warp 0 is the producer: for each
+// stage its lanes copy one row each of T itself, row perm1[q], by one
+// Hopper bulk copy (cp.async.bulk, the 1-D TMA) of the 16-byte-aligned
+// span that covers the pair's live columns [lo, hi] (for any M2: where M2
+// % 4 != 0 or T's base is not 16-byte aligned the copy starts up to 12
+// bytes early and the row's offset s_r into it is kept), completed on the
+// stage's `full` mbarrier with an expected byte count; and the rows of z
+// and of the previous p that each row gathers from, by 16-byte
+// cp.async.cg (through L2: other CTAs wrote them), counted on the same
+// mbarrier. The 31 consumer warps wait on `full`, compute, and arrive on
+// the stage's `empty` mbarrier, which the producer waits on before it
+// refills the slot. Columns stay in T's order in shared memory: pass 1
+// reaches side-2 node i2's live columns through its sorted list (the
+// column and its destination, packed).
+//
+// Layout of a stage's work: lane l of a warp sits on row l % R of the
+// stage and on node l / R of a group of NG = 32 / R side-2 nodes (R = 32
+// where a stage holds 32 rows: every lane on one node, with the same trip
+// count and the same column index; at the protein contact maps' M = 3736
+// only R = 4 rows of T fit a stage, and the R lanes of each node share its
+// trip count and column index). Warp w takes node groups w, w + 31, ...
+// in every stage, the nodes in order of live degree (`order2`, from the
+// sort kernel) so that the groups a warp walks have lists of about one
+// length; its per-node state needs no block barrier:
+//   pass 1: W[r, i2] = sum_{k in node i2} T[perm1(r), col(k)]
+//           * p[dst1(r), dst(k)], each lane down its node's list;
+//   pass 2: a segmented inclusive scan over the stage's rows by side-1
+//           source (rows of one source are consecutive), in a fixed tree
+//           over the R lanes of a node; a segment's tail adds it to
+//           U[source, i2], carrying an open segment to the next stage in
+//           shared memory. Each U element is stored once a step, by one
+//           lane, in a fixed order.
+// T's row stride ldT in shared memory is a multiple of 4 floats (TMA's
+// 16-byte alignment) and 4 mod 32: lanes on 32 rows at one column then
+// meet 8 distinct banks, 4 a bank, the fewest any 16-byte-aligned stride
+// allows (1 mod 32 would break the alignment); rows whose s_r differ, or
+// the nodes' columns, spread them further. The stage's rows of z and p
+// (stride ldz) follow the same rule.
+//
+// Two grid barriers a CG step (cooperative_groups grid.sync()):
+//   A, after each CTA has put its part of pAp in its slot: pAp is summed
+//     over the CTA's nodes from the matvec's own output, p (diag p - U),
+//     in the same phase, so it needs no barrier of its own;
+//   B, after alpha's x and r updates and z = precond r, with the rz and
+//     r.r parts.
+// After B each CTA forms its own rows of p_{k+1} = z + beta p_k (fmaf) in
+// the other p buffer, and the next matvec's producer copies rows of z and
+// of p_k for the rows it gathers: the consumers form p_{k+1} there by the
+// same fmaf, so they need no third barrier after p is written. After a
+// barrier every CTA of a pair adds the pair's C partials in CTA order (one
+// warp, lanes in a fixed order, then a butterfly), so all of them get
+// bit-identical alpha, beta and stop decisions, and the result is
+// deterministic for a given C. Every CTA of the grid meets every barrier;
+// the loop ends for the whole grid when the count of finished pairs (in
+// the workspace, raised only between barriers A and B and read only at the
+// top of a step) reaches the grid's pair count, or at maxiter.
 //
 // Precision: the TPU kernel computes in split2 (two bf16 MXU passes); this
-// kernel computes in f32 with FMA, which is at least as accurate, so it
-// takes no mode argument. Block-wide dot products are deterministic: warp
-// butterflies, then the warp sums in a fixed order, with no float atomics;
-// the matvec sums in a fixed order too.
+// kernel computes in f32 with FMA, which is at least as accurate. Block
+// sums are deterministic: warp butterflies, then the warp sums in a fixed
+// order, with no float atomics.
 //
-// What bounds it: T is read from device memory once per CG step, L1*L2*4
-// bytes a pair (up to 55.8 MB at the protein contact-map shapes,
-// M = 3736, 24x the 50 MB L2 for a 21-pair chunk). With one CTA per pair a
-// chunk of P pairs kept only P SMs busy and a step cost one SM's pass over
-// all its tiles; the split puts C = floor(G / P) CTAs on a pair (G = the
-// CTAs that fit the card at once, one an SM at these shapes), so every SM
-// streams. Inside a CTA the time per tile is still the latency of pass
-// 1's shared-memory loads and the block barriers of each tile, and each
-// step adds three grid barriers of a few microseconds. Shared memory holds
-// two tiles with their rows of p (TR x N2 floats each), side 2's
-// destinations for one column tile, its row pointers and W (TR x N2):
-// with TR = 1 the plan fits the 227 KB a block can get for N2 up to about
-// 9,800 nodes.
+// What bounds it: the bytes are T once for the flags, then its live part
+// once a CG step (4 L1 L2 bytes a pair, 37.7 MB at the contact maps' M =
+// 3736; 21 pairs exceed the 50 MB L2): the streaming floor. On an H100 a
+// step of the 21-pair chunk costs about 3x the floor's step, and the
+// consumers bind, not the stages' bytes. A product
+// costs four shared-memory loads (the list entry, then T, z and p) in a
+// dependent chain, and at M = 3736 a stage holds only R = 4 rows, so every
+// node's list is walked once per 4 rows. More consumer warps helped (1024
+// threads beat 512 and 256); so did the degree order, a little; stages of
+// 32 rows over column tiles of T were slower (a node's entries spread over
+// every tile, so each tile visits nearly every node). Shared memory holds
+// NS stages of R rows of T (ldT floats), z and p (ldz floats each), side
+// 2's sorted list where it fits (else it is read from the workspace
+// through L1), its row pointers, the node order and the carries: the
+// largest R whose 3 stages fit, so pairs with ldT + 2 ldz up to about
+// 19,000 floats run.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "edge_sort.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -95,43 +133,72 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSortThreads = 256;
-constexpr int kStages = 2;                  // T tiles in flight
-constexpr int kMaxCols = 6144;              // columns of a tile
-constexpr int kMaxRows = 16;                // rows of a tile
-constexpr size_t kTileBytes = 96 * 1024;    // bytes of one T tile
+constexpr int kConsumers = kWarps - 1;      // warp 0 produces
+constexpr int kSortThreads = 512;
+constexpr int kLiveThreads = 256;
+constexpr int kLiveCols = 4 * kLiveThreads; // columns of a live-flag block
+constexpr int kLiveRows = 32;               // rows of a live-flag block
 constexpr int kSlots = 3;                   // pAp, rz, r.r of a CTA
-
-struct Plan {
-    int TR, TC, ldT;
-    size_t smem;   // bytes of dynamic shared memory
-};
+constexpr int kVectors = 6;                 // x, r, z, U, p (two)
+// arrivals that complete a stage: the producer's expect_tx, and one
+// cp.async arrival of each producer lane
+constexpr unsigned kFullArrivals = 33;
 
 __host__ __device__ inline size_t round_up(size_t a, size_t b) {
     return (a + b - 1) / b * b;
 }
 
-// Tile shape and shared memory for a pair; TR = 0 when no tile fits.
-__host__ __device__ inline Plan make_plan(int M1, int M2, int N2,
-                                          size_t smem_limit) {
-    Plan P;
-    P.ldT = static_cast<int>(round_up(M2 > 0 ? M2 : 1, 4));
-    const int n_col = (P.ldT + kMaxCols - 1) / kMaxCols;
-    P.TC = static_cast<int>(round_up((P.ldT + n_col - 1) / n_col, 4));
-    P.TR = 0;
-    P.smem = 0;
-    const int rows = M1 < kMaxRows ? (M1 > 0 ? M1 : 1) : kMaxRows;
-    for (int tr = rows; tr >= 1; --tr) {
-        const size_t tile = static_cast<size_t>(tr) * P.TC * sizeof(float);
-        const size_t rows_of_p =
-            static_cast<size_t>(tr) * N2 * sizeof(float);
-        const size_t smem = kStages * (tile + rows_of_p) +
-                            P.TC * sizeof(int) + (N2 + 1) * sizeof(int) +
-                            rows_of_p + 2 * kWarps * sizeof(float);
-        if ((tile <= kTileBytes || tr == 1) && smem <= smem_limit) {
-            P.TR = tr;
-            P.smem = smem;
-            break;
+// The solve's shared-memory plan, in 4-byte words from the block's base:
+// the mbarriers (full[NS], empty[NS]) first, then the ring of NS stages
+// (T: R x ldT, z: R x ldz, p: R x ldz), side 2's sorted list (lists = 1),
+// its row pointers, its nodes by degree (N2), the carries (N2) and the
+// block-sum scratch. R = 0 and smem = 0 when no plan fits.
+struct Plan {
+    int R, NS, ldT, ldv, ldz, lists, stage;
+    int ring, list, rowptr2, order2, carry, red;
+    size_t smem;
+};
+
+__host__ __device__ inline Plan make_plan(int M2, int N2, size_t limit) {
+    Plan P = {};
+    if (M2 >= 65536 || N2 >= 65536) return P;   // the list's 16-bit fields
+    P.ldv = static_cast<int>(round_up(N2 > 0 ? N2 : 1, 4));
+    P.ldT = static_cast<int>(round_up((M2 > 0 ? M2 : 1) + 3, 4));
+    while (P.ldT % 32 != 4) P.ldT += 4;
+    P.ldz = P.ldv;
+    while (P.ldz % 32 != 4) P.ldz += 4;
+    const int opts[4][2] = {{4, 1}, {3, 1}, {4, 0}, {3, 0}};   // NS, lists
+    for (int R = 32; R >= 1; R >>= 1) {
+        for (const auto &opt : opts) {
+            size_t o = 4 * static_cast<size_t>(opt[0]);   // mbarriers
+            const size_t stage =
+                static_cast<size_t>(R) * (P.ldT + 2 * P.ldz);
+            const size_t ring = o;
+            o += opt[0] * stage;
+            const size_t list = o;
+            if (opt[1]) o += round_up(M2, 4);
+            const size_t rowptr2 = o;
+            o += round_up(N2 + 1, 4);
+            const size_t order2 = o;
+            o += round_up(N2, 4);
+            const size_t carry = o;
+            o += round_up(N2, 4);
+            const size_t red = o;
+            o += round_up(2 * kWarps + 4, 4);
+            if (o * sizeof(float) <= limit) {
+                P.R = R;
+                P.NS = opt[0];
+                P.lists = opt[1];
+                P.stage = static_cast<int>(stage);
+                P.ring = static_cast<int>(ring);
+                P.list = static_cast<int>(list);
+                P.rowptr2 = static_cast<int>(rowptr2);
+                P.order2 = static_cast<int>(order2);
+                P.carry = static_cast<int>(carry);
+                P.red = static_cast<int>(red);
+                P.smem = o * sizeof(float);
+                return P;
+            }
         }
     }
     return P;
@@ -139,8 +206,9 @@ __host__ __device__ inline Plan make_plan(int M1, int M2, int N2,
 
 // Workspace layout: byte offsets into the caller's buffer, 256-aligned.
 struct Workspace {
-    size_t Tp, vec, live1, live2, nlive, src1s, dst1s, perm1, rowptr1,
-        src2s, dst2s, perm2, rowptr2, part, finished;
+    size_t vec, live1, live2, meta, src1s, dst1s, perm1, rowptr1, perm2,
+        dst2s, list2, rowptr2, order2, hist, part, finished;
+    size_t hist_ints;   // the sort's counts, a side of a pair
     size_t bytes;
 };
 
@@ -148,27 +216,31 @@ struct Workspace {
 inline Workspace make_workspace(int P, int M1, int M2, int N1, int N2,
                                 int grid) {
     Workspace W;
-    const Plan plan = make_plan(M1, M2, N2, 0);
     const size_t p = static_cast<size_t>(P);
+    const size_t ldv = round_up(N2 > 0 ? N2 : 1, 4);
+    const size_t h1 = static_cast<size_t>((M1 + 31) / 32) * N1;
+    const size_t h2 = static_cast<size_t>((M2 + 31) / 32) * N2;
+    W.hist_ints = h1 > h2 ? h1 : h2;
     size_t o = 0;
     auto take = [&o](size_t bytes) {
         const size_t at = o;
         o = round_up(o + bytes, 256);
         return at;
     };
-    W.Tp = take(p * M1 * plan.ldT * sizeof(float));
-    W.vec = take(p * 4 * N1 * N2 * sizeof(float));   // x, r, p, out/Ap
+    W.vec = take(p * kVectors * N1 * ldv * sizeof(float));
     W.live1 = take(p * M1 * sizeof(int));
-    W.live2 = take(p * M2 * sizeof(int));
-    W.nlive = take(p * 2 * sizeof(int));
+    W.live2 = take(p * M2 * sizeof(int));   // right after live1: one memset
+    W.meta = take(p * 4 * sizeof(int));     // L1, L2, lo, hi
     W.src1s = take(p * M1 * sizeof(int));
     W.dst1s = take(p * M1 * sizeof(int));
     W.perm1 = take(p * M1 * sizeof(int));
     W.rowptr1 = take(p * (N1 + 1) * sizeof(int));
-    W.src2s = take(p * M2 * sizeof(int));
-    W.dst2s = take(p * M2 * sizeof(int));
     W.perm2 = take(p * M2 * sizeof(int));
+    W.dst2s = take(p * M2 * sizeof(int));
+    W.list2 = take(p * M2 * sizeof(unsigned));
     W.rowptr2 = take(p * (N2 + 1) * sizeof(int));
+    W.order2 = take(p * N2 * sizeof(int));
+    W.hist = take(p * 2 * W.hist_ints * sizeof(int));
     W.part = take(static_cast<size_t>(grid) * kSlots * sizeof(float));
     W.finished = take(sizeof(int));
     W.bytes = o;
@@ -234,185 +306,188 @@ __device__ __forceinline__ void pair_sum(const float *part, int first,
     __syncthreads();
 }
 
-// live2[pair, e2] = 1 when column e2 of T holds a nonzero.
-// Grid: (ceil(M2 / 256), P); one thread a column, down all rows.
-__global__ void __launch_bounds__(256)
-stream_live_cols_kernel(const float *__restrict__ T, int *__restrict__ live2,
-                        int M1, int M2) {
-    const size_t pair = blockIdx.y;
-    const int e2 = blockIdx.x * blockDim.x + threadIdx.x;
-    if (e2 >= M2) return;
-    const float *col = T + pair * M1 * M2 + e2;
-    int live = 0;
-#pragma unroll 8
-    for (int e1 = 0; e1 < M1; ++e1)
-        live |= col[static_cast<size_t>(e1) * M2] != 0.f;
-    live2[pair * M2 + e2] = live;
-}
-
-// live1[pair, e1] = 1 when row e1 of T holds a nonzero. Grid: (M1, P).
-__global__ void __launch_bounds__(256)
-stream_live_rows_kernel(const float *__restrict__ T, int *__restrict__ live1,
-                        int M1, int M2) {
-    const size_t pair = blockIdx.y;
-    const int e1 = blockIdx.x;
-    const float *row = T + (pair * M1 + e1) * M2;
-    int live = 0;
-    for (int e2 = threadIdx.x; e2 < M2; e2 += blockDim.x)
-        live |= row[e2] != 0.f;
-    live = __syncthreads_or(live);
-    if (threadIdx.x == 0) live1[pair * M1 + e1] = live != 0;
-}
-
-// Stable counting sort of one pair's live edges (of M) by source over N
-// nodes. Thread i counts, then places, the live edges leaving node i in
-// edge order; a serial prefix sum over the nodes sits between the two
-// scans. Writes the row pointers (N + 1) and returns the number of live
-// edges to every thread.
-__device__ int sort_side(const int *src, const int *dst, const int *live,
-                         int M, int N, int *src_s, int *dst_s, int *perm,
-                         int *rowptr, int *count) {
-    for (int i = threadIdx.x; i < N; i += kSortThreads) {
-        int c = 0;
-        for (int e = 0; e < M; ++e) c += (src[e] == i) & live[e];
-        count[i] = c;
-    }
+// live1[pair, e1] = 1 when row e1 of T holds a nonzero, live2[pair, e2] =
+// 1 when column e2 does; both arrays zeroed before. Grid: (ceil(M2 /
+// kLiveCols), ceil(M1 / kLiveRows), P). Thread t reads columns t + 256 j
+// (j < 4) of the block's rows, so each warp load is 128 contiguous bytes.
+__global__ void __launch_bounds__(kLiveThreads)
+stream_live_kernel(const float *__restrict__ T, int *__restrict__ live1,
+                   int *__restrict__ live2, int M1, int M2) {
+    __shared__ int rowflag[kLiveRows];
+    const size_t pair = blockIdx.z;
+    const int c0 = blockIdx.x * kLiveCols + threadIdx.x;
+    const int r0 = blockIdx.y * kLiveRows;
+    const int rows = min(kLiveRows, M1 - r0);
+    if (threadIdx.x < kLiveRows) rowflag[threadIdx.x] = 0;
     __syncthreads();
-    if (threadIdx.x == 0) {
-        int acc = 0;
-        for (int i = 0; i < N; ++i) {
-            const int c = count[i];
-            count[i] = acc;
-            acc += c;
-        }
-        count[N] = acc;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i <= N; i += kSortThreads) {
-        int at = count[i];
-        rowptr[i] = at;
-        if (i == N) continue;
-        for (int e = 0; e < M; ++e) {
-            if ((src[e] == i) & live[e]) {
-                src_s[at] = i;
-                dst_s[at] = dst[e];
-                perm[at] = e;
-                ++at;
+    const float *base = T + (pair * M1 + r0) * M2;
+    int col[4] = {0, 0, 0, 0};
+#pragma unroll 4
+    for (int i = 0; i < rows; ++i) {
+        const float *row = base + static_cast<size_t>(i) * M2;
+        int any = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int c = c0 + j * kLiveThreads;
+            if (c < M2) {
+                const int nz = row[c] != 0.f;
+                col[j] |= nz;
+                any |= nz;
             }
         }
+        if (__any_sync(0xffffffffu, any) && (threadIdx.x & 31) == 0)
+            rowflag[i] = 1;
     }
-    const int n_live = count[N];
     __syncthreads();
-    return n_live;
+    if (threadIdx.x < rows && rowflag[threadIdx.x])
+        live1[pair * M1 + r0 + threadIdx.x] = 1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+        if (col[j]) live2[pair * M2 + c0 + j * kLiveThreads] = 1;
 }
 
+// One CTA a side of a pair: blockIdx.x 0 sorts side 1, 1 sorts side 2.
+// meta[pair] = (L1, L2, lo, hi): the live counts and side 2's live span
+// (lo = 0, hi = -1 when no column is live). order2 lists side 2's nodes by
+// live degree, highest first, ties in node order: the order in which the
+// solve's warps take them, so that the nodes a warp walks at once have
+// lists of about one length.
 __global__ void __launch_bounds__(kSortThreads)
 stream_sort_kernel(const int *__restrict__ esrc1,
                    const int *__restrict__ edst1,
                    const int *__restrict__ esrc2,
                    const int *__restrict__ edst2,
                    const int *__restrict__ live1,
-                   const int *__restrict__ live2, int *nlive, int *src1s,
-                   int *dst1s, int *perm1, int *rowptr1, int *src2s,
-                   int *dst2s, int *perm2, int *rowptr2, int M1, int M2,
-                   int N1, int N2) {
-    extern __shared__ int count[];   // max(N1, N2) + 1 ints
-    const size_t pair = blockIdx.x;
-    const int L1 = sort_side(esrc1 + pair * M1, edst1 + pair * M1,
-                             live1 + pair * M1, M1, N1, src1s + pair * M1,
-                             dst1s + pair * M1, perm1 + pair * M1,
-                             rowptr1 + pair * (N1 + 1), count);
-    const int L2 = sort_side(esrc2 + pair * M2, edst2 + pair * M2,
-                             live2 + pair * M2, M2, N2, src2s + pair * M2,
-                             dst2s + pair * M2, perm2 + pair * M2,
-                             rowptr2 + pair * (N2 + 1), count);
-    if (threadIdx.x == 0) {
-        nlive[2 * pair] = L1;
-        nlive[2 * pair + 1] = L2;
-    }
-}
-
-// Tp[pair, k1, k2] = T[pair, perm1[k1], perm2[k2]] over the live edges,
-// zero for L2 <= k2 < ldT; rows past L1 are left alone (never read).
-// Grid: (M1 rows, P pairs).
-__global__ void __launch_bounds__(256)
-stream_permute_kernel(const float *__restrict__ T,
-                      const int *__restrict__ nlive,
-                      const int *__restrict__ perm1,
-                      const int *__restrict__ perm2, float *__restrict__ Tp,
-                      int M1, int M2, int ldT) {
+                   const int *__restrict__ live2, int *hist_all,
+                   size_t hist_ints, int hist_in_smem, int *meta,
+                   int *src1s, int *dst1s, int *perm1, int *rowptr1,
+                   int *perm2, int *dst2s, unsigned *list2, int *rowptr2,
+                   int *order2, int M1, int M2, int N1, int N2) {
+    extern __shared__ int hist_smem[];
+    __shared__ int span[2];
     const size_t pair = blockIdx.y;
-    const int k1 = blockIdx.x;
-    if (k1 >= nlive[2 * pair]) return;
-    const int L2 = nlive[2 * pair + 1];
-    const int e1 = perm1[pair * M1 + k1];
-    const float *row = T + (pair * M1 + e1) * M2;
-    const int *p2 = perm2 + pair * M2;
-    float *out = Tp + (pair * M1 + k1) * ldT;
-    for (int k2 = threadIdx.x; k2 < ldT; k2 += blockDim.x)
-        out[k2] = k2 < L2 ? row[p2[k2]] : 0.f;
-}
-
-__device__ __forceinline__ void cp_async16(void *smem, const void *gmem) {
-    const unsigned s =
-        static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Issues the copies of tile t (column tile t / n_row, row tile t % n_row
-// of the rows [R0, R1) the CTA streams) into `buf`, columns up to L2
-// rounded up to four, and of the rows of p that its rows gather from into
-// `prows` (row r of the tile takes p[dst1s(r), :]). Then commits a group
-// (empty when t is past the last tile). p is written by other CTAs during
-// the kernel, so its rows come through L2: 16-byte cp.async.cg where rows
-// of p are 16-byte aligned (N2 a multiple of 4, as in every padded batch),
-// else ld.global.cg.
-__device__ __forceinline__ void issue_tile(const float *Tg, const float *p,
-                                           const int *dst1s, float *buf,
-                                           float *prows, int t, int n_tiles,
-                                           int n_row, int R0, int R1,
-                                           int L2, int N2, const Plan &pl) {
-    if (t < n_tiles) {
-        const int r0 = R0 + (t % n_row) * pl.TR;
-        const int c0 = (t / n_row) * pl.TC;
-        const int rows = min(pl.TR, R1 - r0);
-        const int cols =
-            min(pl.TC, static_cast<int>(round_up(L2, 4)) - c0);
-        const int q = cols >> 2;          // 16-byte chunks a row
-        for (int idx = threadIdx.x; idx < rows * q; idx += kThreads) {
-            const int r = idx / q;
-            const int c = (idx - r * q) << 2;
-            cp_async16(buf + r * pl.TC + c,
-                       Tg + static_cast<size_t>(r0 + r) * pl.ldT + c0 + c);
+    int *hist = hist_in_smem ? hist_smem
+                             : hist_all + (pair * 2 + blockIdx.x) * hist_ints;
+    if (blockIdx.x == 0) {
+        int *rp = rowptr1 + pair * (N1 + 1);
+        graphdot_sort::sort_side<kSortThreads>(
+            esrc1 + pair * M1, edst1 + pair * M1, live1 + pair * M1, M1, N1,
+            rp, src1s + pair * M1, dst1s + pair * M1, perm1 + pair * M1,
+            nullptr, hist);
+        if (threadIdx.x == 0) meta[4 * pair] = rp[N1];
+        return;
+    }
+    int *rp = rowptr2 + pair * (N2 + 1);
+    int *pm = perm2 + pair * M2;
+    int *ds = dst2s + pair * M2;
+    const int *lv = live2 + pair * M2;
+    if (threadIdx.x == 0) {
+        span[0] = INT_MAX;
+        span[1] = -1;
+    }
+    graphdot_sort::sort_side<kSortThreads>(esrc2 + pair * M2,
+                                           edst2 + pair * M2, lv, M2, N2,
+                                           rp, nullptr, ds, pm, nullptr,
+                                           hist);
+    const int L2 = rp[N2];
+    unsigned *lst = list2 + pair * M2;
+    for (int q = threadIdx.x; q < L2; q += kSortThreads)
+        lst[q] = static_cast<unsigned>(pm[q]) |
+                 (static_cast<unsigned>(ds[q]) << 16);
+    int *order = order2 + pair * N2;
+    for (int i = threadIdx.x; i < N2; i += kSortThreads) {
+        const int d = rp[i + 1] - rp[i];
+        int rank = 0;
+        for (int j = 0; j < N2; ++j) {
+            const int dj = rp[j + 1] - rp[j];
+            rank += dj > d || (dj == d && j < i);
         }
-        if ((N2 & 3) == 0) {
-            const int q2 = N2 >> 2;
-            for (int idx = threadIdx.x; idx < rows * q2; idx += kThreads) {
-                const int r = idx / q2;
-                const int c = (idx - r * q2) << 2;
-                cp_async16(prows + r * N2 + c,
-                           p + static_cast<size_t>(dst1s[r0 + r]) * N2 + c);
-            }
-        } else {
-            for (int idx = threadIdx.x; idx < rows * N2; idx += kThreads) {
-                const int r = idx / N2;
-                prows[idx] = __ldcg(
-                    p + static_cast<size_t>(dst1s[r0 + r]) * N2 +
-                    (idx - r * N2));
-            }
+        order[rank] = i;
+    }
+    int lo = INT_MAX, hi = -1;
+    for (int e = threadIdx.x; e < M2; e += kSortThreads) {
+        if (lv[e]) {
+            lo = min(lo, e);
+            hi = max(hi, e);
         }
     }
-    cp_async_commit();
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if ((threadIdx.x & 31) == 0) {
+        atomicMin(span, lo);
+        atomicMax(span + 1, hi);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        meta[4 * pair + 1] = L2;
+        meta[4 * pair + 2] = span[1] >= 0 ? span[0] : 0;
+        meta[4 * pair + 3] = span[1];
+    }
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void *p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t *bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                     smem_u32(bar)),
+                 "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t *bar, unsigned parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "LAB_WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+        "@P1 bra.uni DONE;\n"
+        "bra.uni LAB_WAIT;\n"
+        "DONE:\n"
+        "}\n" ::"r"(smem_u32(bar)),
+        "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t *bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                     smem_u32(bar))
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t *bar, unsigned bytes) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_u32(bar)),
+        "r"(bytes)
+        : "memory");
+}
+
+// One 1-D TMA copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory to shared memory, completed on `bar`.
+__device__ __forceinline__ void bulk_copy(void *dst, const void *src,
+                                          unsigned bytes, uint64_t *bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void *dst, const void *src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+}
+
+// An arrival on `bar` when this thread's earlier cp.async copies are done
+// (counted against the mbarrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint64_t *bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                     "r"(smem_u32(bar))
+                 : "memory");
 }
 
 // The first side-1 node i of the range of CTA c of C: the least i in
@@ -432,82 +507,263 @@ __device__ int range_start(const int *rowptr1, int L1, int N1, int c,
     return lo;
 }
 
+struct Problem {
+    const float *T;
+    const int *meta, *src1s, *dst1s, *perm1, *rowptr1, *rowptr2, *order2;
+    const unsigned *list2;
+    const float *diag, *precond, *b, *tol;
+    float *vec, *part;
+    int *finished;
+    float *x;
+    int *iters;
+    int pair0, n_pairs, C, M1, M2, N1, N2, maxiter;
+};
+
+// What the producer and the consumers of one CTA share for a matvec.
+struct Stream {
+    const float *T;      // the pair's T
+    const int *perm1, *src1s, *dst1s;
+    int M2, lo, span, R0, R1, n_st, gstage;
+};
+
+// Warp 0: the stages of one matvec, in order. Lane l copies row l of the
+// stage (row perm1[q] of T over the live span, by one bulk copy), then all
+// lanes copy the stage's rows of z and of the previous p (16 bytes a
+// cp.async) and arrive when theirs are done.
+__device__ void produce(const Plan &pl, const Stream &S, float *ring,
+                        uint64_t *full, uint64_t *empty, const float *z,
+                        const float *pprev) {
+    const int lane = threadIdx.x & 31;
+    const int R = pl.R, ldv = pl.ldv, ldz = pl.ldz, chunks = pl.ldv >> 2;
+    for (int st = 0; st < S.n_st; ++st) {
+        const int g = S.gstage + st, slot = g % pl.NS;
+        const unsigned parity = (g / pl.NS) & 1;
+        const int qs = S.R0 + st * R;
+        const int nrows = min(R, S.R1 - qs);
+        unsigned bytes = 0;
+        const char *from = nullptr;
+        int jrow = 0;
+        if (lane < nrows) {
+            const int q = qs + lane;
+            const size_t at = reinterpret_cast<size_t>(
+                S.T + static_cast<size_t>(__ldg(S.perm1 + q)) * S.M2 + S.lo);
+            from = reinterpret_cast<const char *>(at & ~size_t(15));
+            bytes = static_cast<unsigned>(
+                round_up((at & 15) + static_cast<size_t>(S.span) * 4, 16));
+            jrow = __ldg(S.dst1s + q);
+        }
+        unsigned total = bytes;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            total += __shfl_xor_sync(0xffffffffu, total, o);
+        mbar_wait(empty + slot, parity ^ 1);
+        float *Ts = ring + static_cast<size_t>(slot) * pl.stage;
+        float *Zs = Ts + R * pl.ldT;
+        float *Ps = Zs + R * ldz;
+        if (lane == 0) mbar_expect(full + slot, total);
+        __syncwarp();
+        if (lane < nrows) bulk_copy(Ts + lane * pl.ldT, from, bytes,
+                                    full + slot);
+        for (int rr = 0; rr < nrows; ++rr) {
+            const size_t j =
+                static_cast<size_t>(__shfl_sync(0xffffffffu, jrow, rr)) * ldv;
+            for (int k = lane; k < chunks; k += 32) {
+                cp_async16(Zs + rr * ldz + 4 * k, z + j + 4 * k);
+                cp_async16(Ps + rr * ldz + 4 * k, pprev + j + 4 * k);
+            }
+        }
+        cp_async_arrive(full + slot);
+    }
+}
+
+// Consumer warp cw (of kConsumers): passes 1 and 2 of its side-2 nodes
+// over every stage of one matvec, storing U of the CTA's source nodes. Lane
+// l sits on row l % R of the stage and node l / R of a group of NG = 32 / R
+// nodes, the groups taken in order2's order (nodes by degree); the warp
+// takes the groups cw, cw + kConsumers, ...
+template <bool kSmemList>
+__device__ __forceinline__ void consume(const Plan &pl, const Stream &S,
+                                        const float *ring, uint64_t *full,
+                                        uint64_t *empty,
+                                        const unsigned *list,
+                                        const int *rowptr2,
+                                        const int *order2, float *carry,
+                                        float *U, float beta, int N2,
+                                        int cw) {
+    const int lane = threadIdx.x & 31;
+    const int R = pl.R, NG = 32 / R, ldT = pl.ldT, ldv = pl.ldv,
+              ldz = pl.ldz;
+    const int r = lane % R, u = lane / R;
+    int prev_last = -2;
+    for (int st = 0; st < S.n_st; ++st) {
+        const int g = S.gstage + st, slot = g % pl.NS;
+        const unsigned parity = (g / pl.NS) & 1;
+        const int qs = S.R0 + st * R;
+        const int nrows = min(R, S.R1 - qs);
+        const bool valid = r < nrows;
+        int src = -1, rbase = 0;
+        if (valid) {
+            const int q = qs + r;
+            const size_t at = reinterpret_cast<size_t>(
+                S.T + static_cast<size_t>(__ldg(S.perm1 + q)) * S.M2 + S.lo);
+            rbase = r * ldT + static_cast<int>((at & 15) >> 2) - S.lo;
+            src = __ldg(S.src1s + q);
+        }
+        const int next_src =
+            qs + nrows < S.R1 ? __ldg(S.src1s + qs + nrows) : -3;
+        // the stage's segments: rows of one source are consecutive; ss is
+        // the first row of this row's segment
+        const int up = __shfl_up_sync(0xffffffffu, src, 1, R);
+        int ss = (r == 0 || src != up) ? r : 0;
+        for (int d = 1; d < R; d <<= 1) {
+            const int t = __shfl_up_sync(0xffffffffu, ss, d, R);
+            if (r >= d) ss = max(ss, t);
+        }
+        const int down = __shfl_down_sync(0xffffffffu, src, 1, R);
+        const int last = nrows - 1;
+        const bool tail = valid && (r == last || src != down);
+        const int first_src = __shfl_sync(0xffffffffu, src, 0);
+        const int last_src = __shfl_sync(0xffffffffu, src, last);
+        const bool cont_in = first_src == prev_last;   // carried segment
+        const bool cont_out = last_src == next_src;    // carried onward
+        prev_last = last_src;
+        mbar_wait(full + slot, parity);
+        const float *Ts = ring + static_cast<size_t>(slot) * pl.stage;
+        const float *Zs = Ts + R * ldT + r * ldz;
+        const float *Ps = Zs + R * ldz;
+        for (int g0 = cw; g0 * NG < N2; g0 += kConsumers) {
+            const int at = g0 * NG + u;
+            const bool has = at < N2;
+            const int i2 = has ? order2[at] : 0;
+            const float cin = has ? carry[i2] : 0.f;
+            int k = has ? rowptr2[i2] : 0;
+            const int k1 = has && valid ? rowptr2[i2 + 1] : 0;
+            // each lane down its node's list
+            float acc = 0.f;
+#pragma unroll 2
+            for (; k < k1; ++k) {
+                const unsigned e = list[k];
+                const int d2 = static_cast<int>(e >> 16);
+                const float pv = fmaf(beta, Ps[d2], Zs[d2]);
+                acc = fmaf(Ts[rbase + static_cast<int>(e & 0xffffu)], pv,
+                           acc);
+            }
+            for (int d = 1; d < R; d <<= 1) {
+                const float t = __shfl_up_sync(0xffffffffu, acc, d, R);
+                if (r - d >= ss) acc += t;
+            }
+            __syncwarp();   // every lane has read the carry
+            if (tail && has) {
+                const float total = (ss == 0 && cont_in) ? cin + acc : acc;
+                if (r == last && cont_out)
+                    carry[i2] = total;
+                else
+                    U[static_cast<size_t>(src) * ldv + i2] = total;
+            }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + slot);
+    }
+}
+
 // One cooperative grid of n_pairs * C CTAs: CTA blockIdx.x works on pair
-// pair0 + blockIdx.x / C, as its part blockIdx.x % C.
-__global__ void __launch_bounds__(kThreads)
-pcg_stream_kernel(const float *__restrict__ Tp_all,
-                  const int *__restrict__ nlive,
-                  const int *__restrict__ src1s_all,
-                  const int *__restrict__ dst1s_all,
-                  const int *__restrict__ rowptr1_all,
-                  const int *__restrict__ src2s_all,
-                  const int *__restrict__ dst2s_all,
-                  const int *__restrict__ rowptr2_all,
-                  const float *__restrict__ diag,
-                  const float *__restrict__ precond,
-                  const float *__restrict__ b, const float *__restrict__ tol,
-                  float *vec_all, float *part, int *finished,
-                  float *__restrict__ x_out, int *__restrict__ iters_out,
-                  int pair0, int n_pairs, int C, int M1, int M2, int N1,
-                  int N2, int maxiter, Plan pl) {
+// pair0 + blockIdx.x / C, as its part blockIdx.x % C. kSmemList: side 2's
+// sorted list is in shared memory (Plan::lists).
+template <bool kSmemList>
+__global__ void __launch_bounds__(kThreads, 1)
+pcg_stream_kernel(Problem P, Plan pl) {
     cg::grid_group grid = cg::this_grid();
     extern __shared__ __align__(16) float smem[];
-    float *tiles = smem;                                  // kStages tiles
-    float *prows = tiles + kStages * pl.TR * pl.TC;       // kStages x TR x N2
-    int *dst2t = reinterpret_cast<int *>(prows + kStages * pl.TR * N2);
-    int *rp2 = dst2t + pl.TC;                             // N2 + 1
-    float *W = reinterpret_cast<float *>(rp2 + N2 + 1);   // TR x N2
-    float *red = W + pl.TR * N2;
+    uint64_t *full = reinterpret_cast<uint64_t *>(smem);
+    uint64_t *empty = full + pl.NS;
+    float *ring = smem + pl.ring;
+    int *rowptr2 = reinterpret_cast<int *>(smem + pl.rowptr2);
+    float *carry = smem + pl.carry;
+    float *red = smem + pl.red;
 
     const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int C = P.C;
     const int local = blockIdx.x / C;
     const int c = blockIdx.x - local * C;
     const int first = local * C;   // the pair's first CTA
-    const size_t pair = pair0 + local;
-    const int N = N1 * N2;
-    const int L1 = nlive[2 * pair];
-    const int L2 = nlive[2 * pair + 1];
-    const float *Tg = Tp_all + pair * M1 * pl.ldT;
-    const int *src1s = src1s_all + pair * M1;
-    const int *dst1s = dst1s_all + pair * M1;
-    const int *rowptr1 = rowptr1_all + pair * (N1 + 1);
-    const int *src2s = src2s_all + pair * M2;
-    const int *dst2s = dst2s_all + pair * M2;
-    const int *rowptr2 = rowptr2_all + pair * (N2 + 1);
-    // CG vectors in device memory. The CTA writes rows [a, a_next) of
-    // each; the matvec gathers rows of p that other CTAs wrote, so p is
-    // never read through the read-only path or L1
-    float *x = vec_all + pair * 4 * N;
-    float *r = x + N;
-    float *p = r + N;
-    float *U = p + N;   // out of the matvec, then Ap
+    const size_t pair = P.pair0 + local;
+    const int M1 = P.M1, M2 = P.M2, N1 = P.N1, N2 = P.N2, ldv = pl.ldv;
+    const int L1 = P.meta[4 * pair];
+    const int L2 = P.meta[4 * pair + 1];
+    const int lo = P.meta[4 * pair + 2];
+    const int span = L2 > 0 ? P.meta[4 * pair + 3] - lo + 1 : 0;
+    const int *rowptr1 = P.rowptr1 + pair * (N1 + 1);
+    const unsigned *list =
+        kSmemList ? reinterpret_cast<const unsigned *>(smem + pl.list)
+                  : P.list2 + pair * M2;
+    // CG vectors in device memory, rows of ldv floats. The CTA writes the
+    // rows of its source nodes; the matvec's producer copies rows of z and
+    // p that other CTAs wrote through L2 only
+    const size_t NV = static_cast<size_t>(N1) * ldv;
+    float *x = P.vec + pair * kVectors * NV;
+    float *r = x + NV;
+    float *z = r + NV;
+    float *U = z + NV;   // the matvec's off-diagonal sums
+    float *p0 = U + NV;  // p_k of even steps
+    float *p1 = p0 + NV;
 
     if (tid == 0) {
+        for (int s = 0; s < pl.NS; ++s) {
+            mbar_init(full + s, kFullArrivals);
+            mbar_init(empty + s, kConsumers);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
         red[0] = __int_as_float(range_start(rowptr1, L1, N1, c, C));
         red[1] = __int_as_float(range_start(rowptr1, L1, N1, c + 1, C));
+    }
+    int *order2 = reinterpret_cast<int *>(smem + pl.order2);
+    for (int i = tid; i <= N2; i += kThreads)
+        rowptr2[i] = P.rowptr2[pair * (N2 + 1) + i];
+    for (int i = tid; i < N2; i += kThreads)
+        order2[i] = P.order2[pair * N2 + i];
+    if (kSmemList) {
+        unsigned *ls = reinterpret_cast<unsigned *>(smem + pl.list);
+        for (int q = tid; q < L2; q += kThreads) ls[q] = P.list2[pair * M2 + q];
     }
     __syncthreads();
     const int a = __float_as_int(red[0]);
     const int a_next = __float_as_int(red[1]);
     __syncthreads();
-    const int R0 = rowptr1[a];        // the CTA's sorted rows of Tp
-    const int R1 = rowptr1[a_next];
-    const int lo = a * N2;            // the CTA's elements of the vectors
-    const int hi = a_next * N2;
-    float *slot = part + blockIdx.x * kSlots;
+    Stream S;
+    S.T = P.T + pair * M1 * M2;
+    S.perm1 = P.perm1 + pair * M1;
+    S.src1s = P.src1s + pair * M1;
+    S.dst1s = P.dst1s + pair * M1;
+    S.M2 = M2;
+    S.lo = lo;
+    S.span = span;
+    S.R0 = rowptr1[a];   // the CTA's sorted rows of T
+    S.R1 = rowptr1[a_next];
+    S.n_st = (S.R1 - S.R0 + pl.R - 1) / pl.R;
+    S.gstage = 0;
+    float *slot = P.part + blockIdx.x * kSlots;
 
-    for (int i = tid; i <= N2; i += kThreads) rp2[i] = rowptr2[i];
-    const float *dg = diag + pair * N;
-    const float *pc = precond + pair * N;
-    const float *bg = b + pair * N;
+    // the CTA's product nodes: rows [a, a_next) of N2
+    const int n_own = (a_next - a) * N2;
+    const float *dg = P.diag + pair * N1 * N2;
+    const float *pc = P.precond + pair * N1 * N2;
+    const float *bg = P.b + pair * N1 * N2;
     float rz = 0.f, rr = 0.f;
-    for (int i = lo + tid; i < hi; i += kThreads) {
-        const float bi = bg[i];
-        const float zi = pc[i] * bi;
-        x[i] = 0.f;
-        r[i] = bi;
-        p[i] = zi;
-        U[i] = 0.f;
+    for (int i = tid; i < n_own; i += kThreads) {
+        const int i1 = a + i / N2;
+        const int i2 = i - (i1 - a) * N2;
+        const int gi = i1 * N2 + i2;
+        const size_t v = static_cast<size_t>(i1) * ldv + i2;
+        const float bi = bg[gi];
+        const float zi = pc[gi] * bi;
+        const float pi = fmaf(0.f, 0.f, zi);   // as the consumers form it
+        x[v] = 0.f;
+        r[v] = bi;
+        z[v] = zi;
+        p0[v] = pi;
+        p1[v] = 0.f;
+        U[v] = 0.f;
         rz += bi * zi;
         rr += bi * bi;
     }
@@ -519,113 +775,76 @@ pcg_stream_kernel(const float *__restrict__ Tp_all,
     grid.sync();
     {
         float v[2];
-        pair_sum<2>(part, first, C, 1, v, red);
+        pair_sum<2>(P.part, first, C, 1, v, red);
         rz = v[0];
         rr = v[1];
     }
-    const float tolp = tol[pair];
+    const float tolp = P.tol[pair];
     bool active = !(sqrtf(rr) < tolp);
-    int n_iter = active ? maxiter : 0;
-    if (!active && c == 0 && tid == 0) atomicAdd(finished, 1);
-    grid.sync();
+    int n_iter = active ? P.maxiter : 0;
+    // the pair's stop, counted by its first CTA between barriers A and B
+    bool pending = !active && c == 0 && tid == 0;
+    float beta = 0.f;   // beta of the step before (0: p_{-1} = 0)
 
-    const int n_row = (R1 - R0 + pl.TR - 1) / pl.TR;
-    const int n_tiles = n_row * ((L2 + pl.TC - 1) / pl.TC);
-
-    for (int step = 0; step < maxiter; ++step) {
-        // no CTA raises the count between the last barrier and the next
-        if (*reinterpret_cast<volatile int *>(finished) == n_pairs) break;
+    for (int step = 0; step < P.maxiter; ++step) {
+        __syncthreads();   // p of this step is written
+        // no CTA raises the count between barrier B and barrier A
+        if (*reinterpret_cast<volatile int *>(P.finished) == P.n_pairs) break;
+        float *pk = (step & 1) ? p1 : p0;      // p_k, formed
+        float *pprev = (step & 1) ? p0 : p1;   // p_{k-1}, then p_{k+1}
         if (active) {
-            // ---- U = sum over the CTA's T tiles (U is zero here) -------
-            for (int s = 0; s < kStages - 1; ++s)
-                issue_tile(Tg, p, dst1s, tiles + s * pl.TR * pl.TC,
-                           prows + s * pl.TR * N2, s, n_tiles, n_row, R0,
-                           R1, L2, N2, pl);
-            for (int t = 0; t < n_tiles; ++t) {
-                const int next = (t + kStages - 1) % kStages;
-                issue_tile(Tg, p, dst1s, tiles + next * pl.TR * pl.TC,
-                           prows + next * pl.TR * N2, t + kStages - 1,
-                           n_tiles, n_row, R0, R1, L2, N2, pl);
-                const int r0 = R0 + (t % n_row) * pl.TR;
-                const int c0 = (t / n_row) * pl.TC;
-                const int c1 = min(c0 + pl.TC, L2);
-                const int rows = min(pl.TR, R1 - r0);
-                if (t % n_row == 0) {   // side 2's destinations of this
-                                        // column tile
-                    for (int k = tid; k < c1 - c0; k += kThreads)
-                        dst2t[k] = dst2s[c0 + k];
-                }
-                cp_async_wait<kStages - 1>();
-                __syncthreads();
-                const float *Ts = tiles + (t % kStages) * pl.TR * pl.TC;
-                const float *Ps = prows + (t % kStages) * pl.TR * N2;
-                const int i2lo = src2s[c0];
-                const int NI = src2s[c1 - 1] - i2lo + 1;
-                // pass 1: W[row, j] over the tile's part of row i2lo + j
-                for (int idx = tid; idx < rows * NI; idx += kThreads) {
-                    const int rl = idx / NI;
-                    const int j = idx - rl * NI;
-                    const int klo = max(rp2[i2lo + j], c0) - c0;
-                    const int khi = min(rp2[i2lo + j + 1], c1) - c0;
-                    const float *Trow = Ts + rl * pl.TC;
-                    const float *prow = Ps + rl * N2;
-                    float acc = 0.f;
-#pragma unroll 4
-                    for (int k = klo; k < khi; ++k)
-                        acc = fmaf(Trow[k], prow[dst2t[k]], acc);
-                    W[idx] = acc;
-                }
-                __syncthreads();
-                // pass 2: U[i1, i2] += W over each run of rows with
-                // source i1; thread j owns column i2lo + j of the tile
-                for (int j = tid; j < NI; j += kThreads) {
-                    const int i2 = i2lo + j;
-                    int cur = src1s[r0];
-                    float acc = 0.f;
-                    for (int rl = 0; rl < rows; ++rl) {
-                        const int s = src1s[r0 + rl];
-                        if (s != cur) {
-                            U[cur * N2 + i2] += acc;
-                            acc = 0.f;
-                            cur = s;
-                        }
-                        acc += W[rl * NI + j];
-                    }
-                    U[cur * N2 + i2] += acc;
-                }
-                __syncthreads();   // the tile's buffers and W are free
+            // ---- U = the off-diagonal sums; pAp from them ----------------
+            if (S.n_st > 0) {
+                if (warp == 0)
+                    produce(pl, S, ring, full, empty, z, pprev);
+                else
+                    consume<kSmemList>(pl, S, ring, full, empty, list,
+                                       rowptr2, order2, carry, U, beta, N2,
+                                       warp - 1);
+                S.gstage += S.n_st;
             }
-            cp_async_wait<0>();
-
-            // ---- Ap = diag o p - U; pAp ------------------------------
+            __syncthreads();   // U is stored
             float pAp = 0.f, unused = 0.f;
-            for (int i = lo + tid; i < hi; i += kThreads) {
-                const float pi = p[i];
-                const float api = dg[i] * pi - U[i];
-                U[i] = api;
-                pAp += pi * api;
+            for (int i = tid; i < n_own; i += kThreads) {
+                const int i1 = a + i / N2;
+                const int i2 = i - (i1 - a) * N2;
+                const size_t v = static_cast<size_t>(i1) * ldv + i2;
+                const float pi = pk[v];
+                pAp += pi * (dg[i1 * N2 + i2] * pi - U[v]);
             }
             block_sum2(pAp, unused, red);
             if (tid == 0) slot[0] = pAp;
         }
-        grid.sync();
+        grid.sync();   // A
+        if (pending) {
+            atomicAdd(P.finished, 1);
+            pending = false;
+        }
         if (active) {
             float v[1];
-            pair_sum<1>(part, first, C, 0, v, red);
+            pair_sum<1>(P.part, first, C, 0, v, red);
             const float pAp = v[0];
             if (pAp == 0.f || rz == 0.f) {   // breakdown: x stays as it is
                 n_iter = step + 1;
                 active = false;
-                if (c == 0 && tid == 0) atomicAdd(finished, 1);
+                if (c == 0 && tid == 0) atomicAdd(P.finished, 1);
             } else {
                 const float alpha = rz / pAp;
                 float rz_new = 0.f;
                 rr = 0.f;
-                for (int i = lo + tid; i < hi; i += kThreads) {
-                    x[i] += alpha * p[i];
-                    const float ri = r[i] - alpha * U[i];
-                    r[i] = ri;
-                    rz_new += ri * (pc[i] * ri);
+                for (int i = tid; i < n_own; i += kThreads) {
+                    const int i1 = a + i / N2;
+                    const int i2 = i - (i1 - a) * N2;
+                    const int gi = i1 * N2 + i2;
+                    const size_t v = static_cast<size_t>(i1) * ldv + i2;
+                    const float pi = pk[v];
+                    const float api = dg[gi] * pi - U[v];
+                    x[v] += alpha * pi;
+                    const float ri = r[v] - alpha * api;
+                    r[v] = ri;
+                    const float zi = pc[gi] * ri;
+                    z[v] = zi;
+                    rz_new += ri * zi;
                     rr += ri * ri;
                 }
                 block_sum2(rz_new, rr, red);
@@ -635,31 +854,43 @@ pcg_stream_kernel(const float *__restrict__ Tp_all,
                 }
             }
         }
-        grid.sync();
+        grid.sync();   // B: z and the rz, r.r parts of every CTA
         if (active) {
             float v[2];
-            pair_sum<2>(part, first, C, 1, v, red);
+            pair_sum<2>(P.part, first, C, 1, v, red);
             const float rz_new = v[0];
             rr = v[1];
             if (sqrtf(rr) < tolp) {
                 n_iter = step + 1;
                 active = false;
-                if (c == 0 && tid == 0) atomicAdd(finished, 1);
+                pending = c == 0 && tid == 0;
             } else {
-                const float beta = rz_new / rz;
-                for (int i = lo + tid; i < hi; i += kThreads) {
-                    p[i] = pc[i] * r[i] + beta * p[i];
-                    U[i] = 0.f;
+                beta = rz_new / rz;
+                for (int i = tid; i < n_own; i += kThreads) {
+                    const int i1 = a + i / N2;
+                    const size_t v = static_cast<size_t>(i1) * ldv +
+                                     (i - (i1 - a) * N2);
+                    pprev[v] = fmaf(beta, pk[v], z[v]);
                 }
                 rz = rz_new;
             }
         }
-        grid.sync();   // the next matvec gathers rows of p of other CTAs
     }
 
-    for (int i = lo + tid; i < hi; i += kThreads)
-        x_out[pair * N + i] = x[i];
-    if (c == 0 && tid == 0) iters_out[pair] = n_iter;
+    for (int i = tid; i < n_own; i += kThreads) {
+        const int i1 = a + i / N2;
+        const int i2 = i - (i1 - a) * N2;
+        P.x[pair * N1 * N2 + i1 * N2 + i2] =
+            x[static_cast<size_t>(i1) * ldv + i2];
+    }
+    if (c == 0 && tid == 0) P.iters[pair] = n_iter;
+}
+
+using SolveFn = void (*)(Problem, Plan);
+
+// The solve's instance for a plan: side 2's list in shared memory or not.
+SolveFn solve_kernel(const Plan &plan) {
+    return plan.lists ? pcg_stream_kernel<true> : pcg_stream_kernel<false>;
 }
 
 }  // namespace
@@ -667,11 +898,12 @@ pcg_stream_kernel(const float *__restrict__ Tp_all,
 extern "C" {
 
 // Dynamic shared memory the solve needs a block, in bytes, for a pair of
-// these shapes under `limit` bytes; 0 when no tile shape fits.
+// these shapes under `limit` bytes; 0 when no plan fits.
 size_t graphdot_pcg_stream_smem_bytes(int M1, int M2, int N1, int N2,
                                       int limit) {
+    (void)M1;
     (void)N1;
-    return make_plan(M1, M2, N2, static_cast<size_t>(limit)).smem;
+    return make_plan(M2, N2, static_cast<size_t>(limit)).smem;
 }
 
 const char *graphdot_cuda_error_string(int err) {
@@ -680,14 +912,15 @@ const char *graphdot_cuda_error_string(int err) {
 
 // The most CTAs of the solve that the current device holds at once (its
 // cooperative grid), for pairs of these shapes, into *grid; returns a
-// cudaError_t, cudaErrorInvalidValue when no tile shape fits `smem_limit`
-// and cudaErrorNotSupported when the device has no cooperative launch.
+// cudaError_t, cudaErrorInvalidValue when no plan fits `smem_limit` and
+// cudaErrorNotSupported when the device has no cooperative launch.
 int graphdot_pcg_stream_grid(int M1, int M2, int N1, int N2, int smem_limit,
                              int *grid) {
+    (void)M1;
     (void)N1;
     *grid = 0;
-    const Plan plan = make_plan(M1, M2, N2, static_cast<size_t>(smem_limit));
-    if (plan.TR == 0) return static_cast<int>(cudaErrorInvalidValue);
+    const Plan plan = make_plan(M2, N2, static_cast<size_t>(smem_limit));
+    if (plan.R == 0) return static_cast<int>(cudaErrorInvalidValue);
     int dev = 0, coop = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -696,118 +929,144 @@ int graphdot_pcg_stream_grid(int M1, int M2, int N1, int N2, int smem_limit,
     if (err == cudaSuccess)
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      dev);
+    const SolveFn fn = solve_kernel(plan);
     if (err == cudaSuccess)
         err = cudaFuncSetAttribute(
-            pcg_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(plan.smem));
     if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, pcg_stream_kernel, kThreads, plan.smem);
+            &per_sm, fn, kThreads, plan.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (!coop) return static_cast<int>(cudaErrorNotSupported);
     *grid = per_sm * sms;
     return static_cast<int>(cudaSuccess);
 }
 
+// The stages' rows R and count NS, the strides of T's rows and of z's and
+// p's rows in a stage, and whether side 2's list sits in shared memory, of
+// the plan for these shapes under `limit` bytes, into out[0..4]; returns 0
+// when a plan fits, else cudaErrorInvalidValue.
+int graphdot_pcg_stream_plan(int M1, int M2, int N1, int N2, int limit,
+                             int *out) {
+    (void)M1;
+    (void)N1;
+    const Plan p = make_plan(M2, N2, static_cast<size_t>(limit));
+    out[0] = p.R;
+    out[1] = p.NS;
+    out[2] = p.ldT;
+    out[3] = p.ldz;
+    out[4] = p.lists;
+    return p.R ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // Bytes of the workspace `graphdot_pcg_stream` takes for P pairs solved by
-// cooperative grids of at most `grid` CTAs.
+// cooperative grids of at most `grid` CTAs: the CG vectors, the live
+// flags, the sorted edge lists, permutations and row pointers, the sort's
+// counts and the block sums; nothing of T's size.
 size_t graphdot_pcg_stream_workspace_bytes(int P, int M1, int M2, int N1,
                                            int N2, int grid) {
     return make_workspace(P, M1, M2, N1, N2, grid).bytes;
 }
 
-// Marks, sorts, permutes and solves P pairs on `stream`, C =
-// `ctas_per_pair` CTAs a pair, in cooperative launches of at most
-// floor(grid / C) pairs each (`grid` from graphdot_pcg_stream_grid).
-// Returns the first cudaError_t that is not cudaSuccess: a launch that is
-// refused is not retried. cudaErrorInvalidValue when no tile shape fits
-// `smem_limit` or C < 1, cudaErrorCooperativeLaunchTooLarge when C >
-// grid. `work` holds `graphdot_pcg_stream_workspace_bytes` bytes for the
-// same P and grid, 256-byte aligned.
+// Marks, sorts and solves P pairs on `stream`, in the cooperative launches
+// `launches` names: n_launches (pairs, C) entries, in pair order, pairs * C
+// <= grid each (`grid` from graphdot_pcg_stream_grid). Returns the first
+// cudaError_t that is not cudaSuccess: a launch that is refused is not
+// retried. cudaErrorInvalidValue when no plan fits `smem_limit` or the
+// launches do not cover the P pairs with C >= 1,
+// cudaErrorCooperativeLaunchTooLarge when a launch exceeds the grid.
+// `work` holds `graphdot_pcg_stream_workspace_bytes` bytes for the same P
+// and grid, 256-byte aligned.
 int graphdot_pcg_stream(const float *T, const int *esrc1, const int *edst1,
                         const int *esrc2, const int *edst2,
                         const float *diag, const float *precond,
                         const float *b, const float *tol, float *x,
                         int *iters, void *work, int P, int M1, int M2,
-                        int N1, int N2, int maxiter, int ctas_per_pair,
-                        int grid, int smem_limit, void *stream) {
+                        int N1, int N2, int maxiter, const int *launches,
+                        int n_launches, int grid, int smem_limit,
+                        void *stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const Plan plan = make_plan(M1, M2, N2, static_cast<size_t>(smem_limit));
-    if (plan.TR == 0 || ctas_per_pair < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    if (ctas_per_pair > grid)
-        return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    const Plan plan = make_plan(M2, N2, static_cast<size_t>(smem_limit));
+    if (plan.R == 0) return static_cast<int>(cudaErrorInvalidValue);
+    long long covered = 0;
+    for (int l = 0; l < n_launches; ++l) {
+        const int pairs = launches[2 * l], C = launches[2 * l + 1];
+        if (pairs < 1 || C < 1)
+            return static_cast<int>(cudaErrorInvalidValue);
+        if (static_cast<long long>(pairs) * C > grid)
+            return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+        covered += pairs;
+    }
+    if (covered != P) return static_cast<int>(cudaErrorInvalidValue);
     const Workspace ws = make_workspace(P, M1, M2, N1, N2, grid);
     char *base = static_cast<char *>(work);
     auto at = [base](size_t offset) { return base + offset; };
-    float *Tp = reinterpret_cast<float *>(at(ws.Tp));
-    float *vec = reinterpret_cast<float *>(at(ws.vec));
     int *live1 = reinterpret_cast<int *>(at(ws.live1));
     int *live2 = reinterpret_cast<int *>(at(ws.live2));
-    int *nlive = reinterpret_cast<int *>(at(ws.nlive));
+    int *meta = reinterpret_cast<int *>(at(ws.meta));
     int *src1s = reinterpret_cast<int *>(at(ws.src1s));
     int *dst1s = reinterpret_cast<int *>(at(ws.dst1s));
     int *perm1 = reinterpret_cast<int *>(at(ws.perm1));
     int *rowptr1 = reinterpret_cast<int *>(at(ws.rowptr1));
-    int *src2s = reinterpret_cast<int *>(at(ws.src2s));
-    int *dst2s = reinterpret_cast<int *>(at(ws.dst2s));
     int *perm2 = reinterpret_cast<int *>(at(ws.perm2));
+    int *dst2s = reinterpret_cast<int *>(at(ws.dst2s));
+    unsigned *list2 = reinterpret_cast<unsigned *>(at(ws.list2));
     int *rowptr2 = reinterpret_cast<int *>(at(ws.rowptr2));
-    float *part = reinterpret_cast<float *>(at(ws.part));
+    int *order2 = reinterpret_cast<int *>(at(ws.order2));
+    int *hist = reinterpret_cast<int *>(at(ws.hist));
     int *finished = reinterpret_cast<int *>(at(ws.finished));
 
-    cudaError_t err = cudaSuccess;
-    if (M2 > 0) {
-        stream_live_cols_kernel<<<dim3((M2 + 255) / 256, P), 256, 0, s>>>(
-            T, live2, M1, M2);
+    cudaError_t err = cudaMemsetAsync(live1, 0, ws.meta - ws.live1, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (M1 > 0 && M2 > 0) {
+        stream_live_kernel<<<dim3((M2 + kLiveCols - 1) / kLiveCols,
+                                  (M1 + kLiveRows - 1) / kLiveRows, P),
+                             kLiveThreads, 0, s>>>(T, live1, live2, M1, M2);
         err = cudaGetLastError();
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    if (M1 > 0) {
-        stream_live_rows_kernel<<<dim3(M1, P), 256, 0, s>>>(T, live1, M1,
-                                                            M2);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    const size_t count_bytes = ((N1 > N2 ? N1 : N2) + 1) * sizeof(int);
-    if (count_bytes > 48 * 1024) {
-        err = cudaFuncSetAttribute(stream_sort_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(count_bytes));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    stream_sort_kernel<<<P, kSortThreads, count_bytes, s>>>(
-        esrc1, edst1, esrc2, edst2, live1, live2, nlive, src1s, dst1s, perm1,
-        rowptr1, src2s, dst2s, perm2, rowptr2, M1, M2, N1, N2);
+    const size_t hist_bytes = ws.hist_ints * sizeof(int);
+    const int in_smem =
+        hist_bytes <= static_cast<size_t>(smem_limit) - 64 ? 1 : 0;
+    const size_t sort_smem = in_smem ? hist_bytes : 0;
+    err = cudaFuncSetAttribute(stream_sort_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(sort_smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    stream_sort_kernel<<<dim3(2, P), kSortThreads, sort_smem, s>>>(
+        esrc1, edst1, esrc2, edst2, live1, live2, hist, ws.hist_ints,
+        in_smem, meta, src1s, dst1s, perm1, rowptr1, perm2, dst2s, list2,
+        rowptr2, order2, M1, M2, N1, N2);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (M1 > 0) {
-        stream_permute_kernel<<<dim3(M1, P), 256, 0, s>>>(
-            T, nlive, perm1, perm2, Tp, M1, M2, plan.ldT);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    err = cudaFuncSetAttribute(pcg_stream_kernel,
+    const SolveFn fn = solve_kernel(plan);
+    err = cudaFuncSetAttribute(fn,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(plan.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    int C = ctas_per_pair;
-    const int per_launch = grid / C;
-    for (int pair0 = 0; pair0 < P; pair0 += per_launch) {
-        int n_pairs = P - pair0 < per_launch ? P - pair0 : per_launch;
+    Problem prob = {T,       meta,    src1s,
+                    dst1s,   perm1,   rowptr1,
+                    rowptr2, order2,  list2,   diag,
+                    precond, b,       tol,
+                    reinterpret_cast<float *>(at(ws.vec)),
+                    reinterpret_cast<float *>(at(ws.part)),
+                    finished, x,      iters,
+                    0,       0,       1,
+                    M1,      M2,      N1,
+                    N2,      maxiter};
+    Plan pl = plan;
+    for (int l = 0; l < n_launches; ++l) {
+        prob.n_pairs = launches[2 * l];
+        prob.C = launches[2 * l + 1];
         err = cudaMemsetAsync(finished, 0, sizeof(int), s);
         if (err != cudaSuccess) return static_cast<int>(err);
-        Plan pl = plan;
-        int M1v = M1, M2v = M2, N1v = N1, N2v = N2, maxiterv = maxiter;
-        void *args[] = {
-            &Tp, &nlive, &src1s, &dst1s, &rowptr1, &src2s, &dst2s,
-            &rowptr2, &diag, &precond, &b, &tol, &vec, &part, &finished,
-            &x, &iters, &pair0, &n_pairs, &C, &M1v, &M2v, &N1v, &N2v,
-            &maxiterv, &pl};
+        void *args[] = {&prob, &pl};
         err = cudaLaunchCooperativeKernel(
-            reinterpret_cast<const void *>(pcg_stream_kernel),
-            dim3(n_pairs * C), dim3(kThreads), args, plan.smem, s);
+            reinterpret_cast<const void *>(fn),
+            dim3(prob.n_pairs * prob.C), dim3(kThreads), args, plan.smem, s);
         if (err != cudaSuccess) return static_cast<int>(err);
+        prob.pair0 += prob.n_pairs;
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -21,11 +21,11 @@ lists (``esrc``/``edst`` indices), not as one-hot matrices.
 - :func:`pcg_resident_reference` is the same function in plain torch:
   batched over pairs with done masks, the matvec by ``index_select`` and
   sums over the same edge lists (:func:`offdiag_operator`).
-- :func:`pcg_stream` launches ``csrc/pcg_stream.cu`` on CUDA tensors (a
-  cooperative grid with C CTAs per pair, each streaming its share of T
-  from device memory in tiles, the CG vectors in a device workspace), for
-  pairs beyond a block's shared memory. Given CPU tensors it runs
-  :func:`pcg_stream_reference`.
+- :func:`pcg_stream` launches ``csrc/pcg_stream.cu`` on CUDA tensors (one
+  read of T for the live edges, a parallel sort, then cooperative grids
+  with C CTAs per pair, each streaming its live rows of T in place by bulk
+  copies, the CG vectors in a device workspace), for pairs beyond a
+  cluster. Given CPU tensors it runs :func:`pcg_stream_reference`.
 - :func:`pcg_stream_reference` is its plain twin, the same function as
   :func:`pcg_resident_reference`.
 - :func:`pcg_cluster` launches ``csrc/pcg_cluster.cu`` on CUDA tensors (one
@@ -483,10 +483,14 @@ def _stream_library():
     """The built streaming-kernel library, with its C signatures."""
     lib = _build.load('pcg_stream')
     ptr, cint, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-    lib.graphdot_pcg_stream.argtypes = [ptr] * 12 + [cint] * 9 + [ptr]
+    lib.graphdot_pcg_stream.argtypes = [ptr] * 12 + [cint] * 6 + [
+        ptr] + [cint] * 3 + [ptr]
     lib.graphdot_pcg_stream.restype = cint
     lib.graphdot_pcg_stream_smem_bytes.argtypes = [cint] * 5
     lib.graphdot_pcg_stream_smem_bytes.restype = size
+    lib.graphdot_pcg_stream_plan.argtypes = [cint] * 5 + [
+        ctypes.POINTER(cint)]
+    lib.graphdot_pcg_stream_plan.restype = cint
     lib.graphdot_pcg_stream_grid.argtypes = [cint] * 5 + [
         ctypes.POINTER(cint)]
     lib.graphdot_pcg_stream_grid.restype = cint
@@ -710,11 +714,35 @@ pcg_resident.launches = 0
 
 
 def stream_ctas_per_pair(P, N1, grid):
-    """The CTAs :func:`pcg_stream` gives each of P pairs by default: the
-    cooperative grid of ``grid`` CTAs shared out, ``floor(grid / P)``, at
-    least 1 (more pairs than the grid run in several launches) and at
-    most N1 (a CTA owns at least one side-1 node)."""
+    """The CTAs :func:`pcg_stream` gives each of P pairs of one launch by
+    default: the cooperative grid of ``grid`` CTAs shared out,
+    ``floor(grid / P)``, at least 1 and at most N1 (a CTA owns at least
+    one side-1 node)."""
     return max(1, min(grid // max(P, 1), N1))
+
+
+def stream_launch_plan(P, N1, grid, ctas_per_pair=None):
+    """The cooperative launches of one :func:`pcg_stream` call on P pairs,
+    in pair order: a list of (pairs, C). By default launches of at most
+    ``grid`` pairs, each at its own C = :func:`stream_ctas_per_pair` of
+    its pairs, so that a last launch of a few pairs still fills the grid;
+    an int ``ctas_per_pair`` forces C, in launches of ``grid // C``
+    pairs."""
+    if grid < 1:
+        raise ValueError(f'a cooperative grid of {grid} CTAs runs nothing')
+    if ctas_per_pair is not None and not 1 <= ctas_per_pair <= grid:
+        raise ValueError(f'ctas_per_pair={ctas_per_pair} is not in [1, '
+                         f'{grid}]')
+    plan, left = [], P
+    while left > 0:
+        if ctas_per_pair is None:
+            pairs = min(left, grid)
+            plan.append((pairs, stream_ctas_per_pair(pairs, N1, grid)))
+        else:
+            pairs = min(left, grid // ctas_per_pair)
+            plan.append((pairs, ctas_per_pair))
+        left -= pairs
+    return plan
 
 
 def stream_grid(M1, M2, N1, N2, device):
@@ -724,8 +752,9 @@ def stream_grid(M1, M2, N1, N2, device):
     limit = _smem_limit(device)
     if not lib.graphdot_pcg_stream_smem_bytes(M1, M2, N1, N2, limit):
         raise ValueError(
-            f'no tile of the streaming kernel fits {limit} bytes of shared '
-            f'memory for a pair with M1={M1}, M2={M2}, N1={N1}, N2={N2}')
+            f'no stage plan of the streaming kernel (3 stages of a row of '
+            f'T, z and p) fits {limit} bytes of shared memory for a pair '
+            f'with M1={M1}, M2={M2}, N1={N1}, N2={N2}')
     grid = ctypes.c_int(0)
     with torch.cuda.device(_device_index(device)):
         err = lib.graphdot_pcg_stream_grid(M1, M2, N1, N2, limit,
@@ -734,30 +763,57 @@ def stream_grid(M1, M2, N1, N2, device):
     return grid.value
 
 
+def stream_workspace_bytes(P, M1, M2, N1, N2, device):
+    """Bytes of the device workspace one :func:`pcg_stream` call on P pairs
+    of these shapes allocates on the CUDA ``device``: the CG vectors, the
+    live flags, the sorted edge lists, permutations and row pointers, the
+    sort's counts and the block sums. It grows with P (M1 + M2 + N1 N2 +
+    M1 N1 / 32 + M2 N2 / 32), not with M1 M2."""
+    return _stream_library().graphdot_pcg_stream_workspace_bytes(
+        P, M1, M2, N1, N2, stream_grid(M1, M2, N1, N2, device))
+
+
+def stream_plan(M1, M2, N1, N2, device):
+    """The shared-memory plan of :func:`pcg_stream`'s solve for pairs of
+    these shapes on the CUDA ``device``: {'rows' (R, rows of T a stage),
+    'stages' (NS), 'ldT', 'ldz' (floats a row of T, and of z and p, in a
+    stage), 'list_in_smem', 'smem_bytes'}."""
+    lib = _stream_library()
+    limit = _smem_limit(device)
+    out = (ctypes.c_int * 5)()
+    _raise_on(lib, lib.graphdot_pcg_stream_plan(M1, M2, N1, N2, limit, out),
+              'pcg_stream plan')
+    return dict(zip(('rows', 'stages', 'ldT', 'ldz', 'list_in_smem'), out),
+                smem_bytes=lib.graphdot_pcg_stream_smem_bytes(
+                    M1, M2, N1, N2, limit))
+
+
 def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
                maxiter, ctas_per_pair=None):
     """Solve a batch of product-graph systems with the streaming CUDA PCG.
 
     Arguments and results as :func:`pcg_resident`. The kernel keeps T in
-    device memory and streams it through shared memory in tiles once per
-    CG step, so a pair of any edge count runs; the wrapper allocates the
-    workspace (a copy of T sorted by edge source on both sides, the CG
-    vectors and the sorted edge lists, about T's size again) with
-    ``torch.empty``.
+    device memory, reads it once to find the live edges, and streams each
+    live row of T itself through shared memory once per CG step (bulk
+    copies of the span of the live columns); the wrapper allocates the
+    workspace (the CG vectors, the live flags, the sorted edge lists,
+    permutations and row pointers, the sort's counts; nothing of T's size)
+    with ``torch.empty``.
 
-    The solve is one cooperative grid of G CTAs (:func:`stream_grid`, one
-    an SM at protein shapes), C of them on each pair; ``ctas_per_pair``
-    None takes C from :func:`stream_ctas_per_pair`, an int forces it
-    (1 <= C <= G). More pairs than G // C run in several launches. The C
-    used is kept in ``pcg_stream.last_ctas_per_pair``.
+    The solve runs in cooperative grids of at most G CTAs
+    (:func:`stream_grid`, one an SM at protein shapes), C of them on each
+    pair; :func:`stream_launch_plan` names the launches. ``ctas_per_pair``
+    None gives each launch its own C (:func:`stream_ctas_per_pair` of its
+    pairs), an int forces it (1 <= C <= G) for every launch. The first
+    launch's C is kept in ``pcg_stream.last_ctas_per_pair``.
 
-    CUDA tensors launch the kernel on the current stream and add one to
+    CUDA tensors launch the kernels on the current stream and add one to
     ``pcg_stream.launches`` a call; CPU tensors run
-    :func:`pcg_stream_reference`. Raises when no tile shape fits a block's
-    shared memory (side 2 beyond about 9,800 nodes), for more than 65535
-    pairs (the preprocessing grids' second dimension), for a C outside
-    [1, G], or when a launch fails; a refused cooperative launch is not
-    retried.
+    :func:`pcg_stream_reference`. Raises when no stage plan fits a block's
+    shared memory (three stages of one row of T, z and p:
+    :func:`stream_plan`), for more than 65535 pairs (the preprocessing
+    grids' last dimension), for a C outside [1, G], or when a launch
+    fails; a refused cooperative launch is not retried.
     """
     P, M1, M2, N1, N2 = _check(T, esrc1, edst1, esrc2, edst2, diag,
                                precond, b, tol, maxiter)
@@ -778,16 +834,17 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
     device = _device_index(T.device)
     limit = _smem_limit(T.device)
     grid = stream_grid(M1, M2, N1, N2, T.device)
-    C = stream_ctas_per_pair(P, N1, grid) if ctas_per_pair is None \
-        else ctas_per_pair
-    if C > grid:
+    if ctas_per_pair is not None and ctas_per_pair > grid:
         raise ValueError(
-            f'ctas_per_pair={C} exceeds the {grid} CTAs of a cooperative '
-            'grid on this device')
+            f'ctas_per_pair={ctas_per_pair} exceeds the {grid} CTAs of a '
+            'cooperative grid on this device')
     x = torch.empty_like(b)
     iters = torch.empty(P, dtype=torch.int32, device=T.device)
     if P == 0:
         return x, iters
+    plan = stream_launch_plan(P, N1, grid, ctas_per_pair)
+    launches = (ctypes.c_int * (2 * len(plan)))(
+        *(v for launch in plan for v in launch))
     # freed when this returns: the caching allocator hands it out again
     # only to work queued after the launch on the same stream
     work = torch.empty(
@@ -800,16 +857,18 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
             esrc2.data_ptr(), edst2.data_ptr(), diag.data_ptr(),
             precond.data_ptr(), b.data_ptr(), tol.data_ptr(),
             x.data_ptr(), iters.data_ptr(), work.data_ptr(),
-            P, M1, M2, N1, N2, maxiter, C, grid, limit, stream)
+            P, M1, M2, N1, N2, maxiter, launches, len(plan), grid, limit,
+            stream)
     _raise_on(lib, err, 'pcg_stream launch')
     pcg_stream.launches += 1
-    pcg_stream.last_ctas_per_pair = C
+    pcg_stream.last_ctas_per_pair = plan[0][1]
     return x, iters
 
 
 #: kernel launches made by :func:`pcg_stream` in this process
 pcg_stream.launches = 0
-#: CTAs a pair of the last CUDA call of :func:`pcg_stream`
+#: CTAs a pair of the first launch of the last CUDA call of
+#: :func:`pcg_stream`
 pcg_stream.last_ctas_per_pair = None
 
 

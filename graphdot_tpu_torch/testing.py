@@ -1,7 +1,8 @@
 """Synthetic graph sets for tests, benchmarks and dry runs: random
 molecules and contact-map proteins (the same generators, seeds and
-numbers as :mod:`graphdot_tpu.testing`), and the categorical-edge
-protein set of ``bench_protein.py``.
+numbers as :mod:`graphdot_tpu.testing`), the categorical-edge protein set
+of ``bench_protein.py``, and the edge cases of the streaming PCG kernel
+(a hub graph, dead edges between live ones, odd edge counts).
 """
 import numpy as np
 
@@ -10,7 +11,7 @@ from .graph.frame import DataFrame
 
 __all__ = ['random_molecule_graph', 'random_molecule_set',
            'random_protein_graph', 'random_protein_set',
-           'protein_niche_set']
+           'protein_niche_set', 'hub_molecule_graph', 'with_dead_edges']
 
 
 def random_molecule_graph(rng, n_atoms, elements=(1, 6, 7, 8, 16)):
@@ -133,3 +134,75 @@ def protein_niche_set(seed, n, n_residues_range):
                    'length': e['length'], 'ctype': ctype},
             title=g.title))
     return Graph.unify_datatype(graphs)
+
+
+def hub_molecule_graph(seed, n_atoms=40, hub_degree=36):
+    """A random molecule graph of ``n_atoms`` atoms plus a hub atom bonded
+    to ``hub_degree`` of them and an atom with no bond: one node of degree
+    above 32 (a warp's width) and one of degree 0."""
+    rng = np.random.default_rng(seed)
+    g = random_molecule_graph(rng, n_atoms)
+    n = len(g.nodes)
+    friends = np.sort(rng.choice(n, size=hub_degree, replace=False))
+    length = rng.uniform(1.0, 1.8, size=hub_degree).astype(np.float32)
+    e = g.edges
+    nodes = DataFrame({
+        '!i': np.arange(n + 2),
+        'element': np.concatenate([np.asarray(g.nodes['element']),
+                                   np.array([6, 1], dtype=np.int8)])})
+    edges = DataFrame({
+        '!i': np.concatenate([np.asarray(e['!i']), friends]).astype(
+            np.uint32),
+        '!j': np.concatenate([np.asarray(e['!j']),
+                              np.full(hub_degree, n)]).astype(np.uint32),
+        '!w': np.concatenate([np.asarray(e['!w']), np.exp(
+            -0.5 * (length - 1.4) ** 2).astype(np.float32)]),
+        'length': np.concatenate([np.asarray(e['length']), length]),
+    })
+    return Graph(nodes, edges, title=f'hub-{n_atoms}-{hub_degree}')
+
+
+def with_dead_edges(args, case):
+    """The operands of a product-graph PCG solve, ``(T, esrc1, edst1,
+    esrc2, edst2, *rest)`` with T [P, M1, M2] (a torch tensor and edge
+    lists), with dead edges added: edges whose row (side 1) or column
+    (side 2) of T is 0, each with the ends of a live edge next to it, so
+    the system is the same and only the edge lists differ.
+
+    ``'odd_m2'`` appends one to side 1 and three to side 2 (so M2 % 4 == 3
+    where M2 % 4 was 0, and T's rows lie at every 4-byte offset of 16);
+    ``'dead_between'`` puts one before side 1's first edge and before every
+    third edge after it, and one before every fourth edge of side 2."""
+    import torch
+    T, esrc1, edst1, esrc2, edst2, *rest = args
+    P, M1, M2 = T.shape
+
+    def index(M, side):
+        """the old edge each new edge copies, and which new edges are
+        dead"""
+        if case == 'odd_m2':
+            mapping = list(range(M)) + [-1] * (1 if side == 1 else 3)
+        elif case == 'dead_between':
+            gap = 3 if side == 1 else 4
+            mapping = [-1] if side == 1 else []
+            for e in range(M):
+                if e % gap == gap - 1:
+                    mapping.append(-1)
+                mapping.append(e)
+        else:
+            raise ValueError(f'no edge case {case!r}')
+        near, idx = 0, []
+        for m in mapping:
+            near = m if m >= 0 else near
+            idx.append(near)
+        return (torch.tensor(idx, device=T.device),
+                torch.tensor([m < 0 for m in mapping], device=T.device))
+
+    i1, dead1 = index(M1, 1)
+    i2, dead2 = index(M2, 2)
+    Tn = T.index_select(1, i1).index_select(2, i2)
+    Tn[:, dead1, :] = 0
+    Tn[:, :, dead2] = 0
+    return [Tn.contiguous(), *(e.index_select(1, i).contiguous() for e, i in
+                               ((esrc1, i1), (edst1, i1), (esrc2, i2),
+                                (edst2, i2))), *rest]

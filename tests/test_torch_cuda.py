@@ -33,9 +33,12 @@ from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
     cluster_smem, group_pairs, largest_packed_k, live_extent,
     offdiag_operator, pcg_cluster, pcg_cluster_reference, pcg_packed,
     pcg_packed_reference, pcg_resident, pcg_resident_reference, pcg_stream,
-    pcg_stream_reference, smallest_cluster, stream_grid)
+    pcg_stream_reference, smallest_cluster, stream_grid, stream_launch_plan,
+    stream_workspace_bytes)
+from graphdot_tpu_torch.graph import Graph  # noqa: E402
 from graphdot_tpu_torch.testing import (  # noqa: E402
-    protein_niche_set, random_molecule_set)
+    hub_molecule_graph, protein_niche_set, random_molecule_set,
+    with_dead_edges)
 
 pytestmark = pytest.mark.cuda
 
@@ -440,6 +443,113 @@ def test_stream_no_pairs_launches_nothing(card):
     x, iters = pcg_stream(*args, 10)
     assert x.shape[0] == 0 and iters.shape == (0,)
     assert pcg_stream.launches == before
+
+
+def _pair_systems(device, graphs1, graphs2, i, j):
+    """The solver's operands for the pairs (graphs1[i], graphs2[j]) under
+    the molecule kernel, and its maxiter."""
+    kernel = _kernel(device)
+    _, bd1, _ = kernel._prepare_batch(graphs1)
+    _, bd2, _ = kernel._prepare_batch(graphs2)
+    s = mlgk_setup(kernel._theta_vector(),
+                   kernel._operands(bd1, bd2,
+                                    torch.as_tensor(i, device=device),
+                                    torch.as_tensor(j, device=device)),
+                   knode=kernel.node_kernel, kedge=kernel.edge_kernel,
+                   n_p_theta=1, mode='cuda')
+    n_pad = max(bd1['node_mask'].shape[1], bd2['node_mask'].shape[1])
+    return [s['T'], s['esrc_1'], s['edst_1'], s['esrc_2'], s['edst_2'],
+            s['diag'].contiguous(), s['precond'].contiguous(),
+            s['b'].contiguous(), s['tol'], kernel.maxiter(n_pad)]
+
+
+def _stream_case(device, case):
+    """The edge cases of csrc/pcg_stream.cu on molecule pairs: the
+    rectangular systems of tests/test_torch_stream.py (5 molecules of 8-14
+    atoms against 3 of 20-24) with dead edges added (``'odd_m2'``: M2 % 4
+    == 3; ``'dead_between'``: dead edges between live ones on both sides),
+    and ``'hub'``: 3 molecules against a graph with a node of degree 36
+    and one of degree 0."""
+    if case == 'hub':
+        return _pair_systems(
+            device, random_molecule_set(3, 3, (8, 14)),
+            Graph.unify_datatype([hub_molecule_graph(5)]), np.arange(3),
+            np.zeros(3, dtype=np.int64))
+    i, j = np.indices((5, 3))
+    args = _pair_systems(device, random_molecule_set(5, 5, (8, 14)),
+                         random_molecule_set(6, 3, (20, 24)), i.ravel(),
+                         j.ravel())
+    return with_dead_edges(args, case)
+
+
+@pytest.mark.parametrize('ctas', [None, 3])
+@pytest.mark.parametrize('case', ['odd_m2', 'dead_between', 'hub'])
+def test_stream_edge_cases(card, case, ctas):
+    """The new kernel's edge cases against the twin, at the default C and
+    a forced one, each run twice and bitwise equal."""
+    args = _stream_case(card, case)
+    T, esrc2 = args[0], args[3]
+    if case == 'odd_m2':
+        assert T.shape[2] % 4 == 3
+    if case == 'hub':
+        live = (T != 0).any(dim=1)[0]
+        degree = torch.bincount(esrc2[0][live].long(),
+                                minlength=args[5].shape[2])
+        assert int(degree.max()) > 32 and int((degree == 0).sum()) > 0
+    x, iters = pcg_stream(*args, ctas_per_pair=ctas)
+    x2, iters2 = pcg_stream(*args, ctas_per_pair=ctas)
+    x_ref, iters_ref = pcg_stream_reference(*args)
+    torch.cuda.synchronize()
+    _close(x, x_ref)
+    assert torch.equal(x, x2) and torch.equal(iters, iters2)
+    assert int((iters - iters_ref).abs().max()) <= 1
+
+
+@pytest.mark.parametrize('case', ['odd_m2', 'dead_between'])
+def test_stream_edge_cases_protein(protein_chunk, case):
+    """A lone protein pair (M = 3736) with dead edges added: rows of T at
+    every 4-byte offset, and dead edges inside the live span."""
+    args, x_ref = protein_chunk
+    one = with_dead_edges([a[1:2] for a in args[:-1]], case) + [args[-1]]
+    x, _ = pcg_stream(*one)
+    x2, _ = pcg_stream(*one)
+    torch.cuda.synchronize()
+    _close(x, x_ref[1:2])
+    assert torch.equal(x, x2)
+
+
+def test_stream_launches_differ_in_c(card):
+    """G + 8 molecule pairs: a launch of G pairs at C = 1, then one of 8
+    pairs spread over the grid."""
+    graphs = random_molecule_set(7, 32, (9, 24))
+    i, j = np.triu_indices(32)
+    full = _pair_systems(card, graphs, graphs, i, j)
+    M, N = full[0].shape[1], full[5].shape[1]
+    grid = stream_grid(M, M, N, N, card)
+    P = grid + 8
+    assert P <= len(i)
+    args = [a[:P] for a in full[:-1]] + [full[-1]]
+    plan = stream_launch_plan(P, N, grid)
+    assert len({C for _, C in plan}) > 1
+    x, iters = pcg_stream(*args)
+    torch.cuda.synchronize()
+    assert pcg_stream.last_ctas_per_pair == plan[0][1]
+    x_ref, iters_ref = pcg_stream_reference(*args)
+    _close(x, x_ref)
+    assert int((iters - iters_ref).abs().max()) <= 1
+
+
+def test_stream_workspace_smaller_than_t(protein_chunk):
+    """The workspace holds no copy of T: for the protein chunk it is below
+    a quarter of T's bytes, and it does not grow with M1 M2."""
+    args, _ = protein_chunk
+    T = args[0]
+    P, M1, M2 = T.shape
+    N1, N2 = args[5].shape[1:]
+    ws = stream_workspace_bytes(P, M1, M2, N1, N2, T.device)
+    assert ws < T.numel() * T.element_size() / 4
+    wider = stream_workspace_bytes(P, 2 * M1, 2 * M2, N1, N2, T.device)
+    assert wider - ws < 4 * ws
 
 
 @pytest.mark.parametrize('k', [1, 2, 3, 4])

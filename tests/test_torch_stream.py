@@ -37,8 +37,10 @@ from graphdot_tpu_torch.kernel import (  # noqa: E402
 from graphdot_tpu_torch.kernel.marginalized._solver import (  # noqa: E402
     cuda_solver, mlgk_setup)
 from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
-    pcg_resident, pcg_stream, pcg_stream_reference, stream_ctas_per_pair)
-from graphdot_tpu_torch.testing import protein_niche_set  # noqa: E402
+    pcg_resident, pcg_stream, pcg_stream_reference, stream_ctas_per_pair,
+    stream_launch_plan)
+from graphdot_tpu_torch.testing import (  # noqa: E402
+    protein_niche_set, with_dead_edges)
 
 from test_torch_pcg import _bad_args  # noqa: E402
 
@@ -73,7 +75,14 @@ def jax_reference_gram():
 def molecule_systems(case):
     """Operands of pcg_stream for pairs of molecules of 8-14 atoms:
     'square' is all 15 pairs of 5 molecules; 'rectangular' pairs 5 of them
-    with 3 of 20-24 atoms (M1 != M2, N1 != N2)."""
+    with 3 of 20-24 atoms (M1 != M2, N1 != N2); 'odd_m2' and
+    'dead_between' are the rectangular systems with dead edges added
+    (``testing.with_dead_edges``), the shapes of the card's checks of
+    csrc/pcg_stream.cu: M2 % 4 == 3, and dead edges between live ones on
+    both sides."""
+    if case in ('odd_m2', 'dead_between'):
+        args, maxiter = molecule_systems('rectangular')
+        return with_dead_edges(args, case), maxiter
     kernel = MarginalizedGraphKernel(
         tmk.TensorProduct(element=tmk.KroneckerDelta(0.2)),
         tmk.TensorProduct(length=tmk.SquareExponential(0.3)), q=0.05,
@@ -98,7 +107,8 @@ def molecule_systems(case):
             s['b'].contiguous(), s['tol']], kernel.maxiter(n_pad)
 
 
-@pytest.mark.parametrize('case', ['square', 'rectangular'])
+@pytest.mark.parametrize('case', ['square', 'rectangular', 'odd_m2',
+                                  'dead_between'])
 def test_reference_matches_pallas_stream(monkeypatch, case):
     monkeypatch.setenv('GRAPHDOT_PALLAS_STREAM', '1')
     args, maxiter = molecule_systems(case)
@@ -106,8 +116,15 @@ def test_reference_matches_pallas_stream(monkeypatch, case):
     P, M1, M2 = T.shape
     N1, N2 = diag.shape[1:]
     assert M2 % 128 != 0       # the JAX side pads M2 to 128 lanes
-    if case == 'rectangular':
+    if case != 'square':
         assert M1 != M2 and N1 != N2
+    if case == 'odd_m2':
+        assert M2 % 4 == 3 and M1 % 2 == 1
+    if case == 'dead_between':
+        # a dead edge of each side lies between two live ones
+        for live in ((T != 0).any(dim=2), (T != 0).any(dim=1)):
+            gaps = ~live[:, 1:-1] & live[:, :-2] & live[:, 2:]
+            assert bool(gaps.any(dim=1).all())
 
     x, iters = pcg_stream_reference(*args, maxiter)
     assert x.shape == (P, N1, N2) and x.dtype == torch.float32
@@ -151,13 +168,47 @@ def test_wrapper_rejects_bad_ctas_per_pair(ctas):
         pcg_stream(*args, maxiter, ctas_per_pair=ctas)
 
 
+@pytest.mark.parametrize('case', ['odd_m2', 'dead_between'])
+def test_dead_edges_leave_the_twin_unchanged(case):
+    """Dead edges are left out of the solve: the twin's result on the edge
+    cases is the rectangular systems' own, bit for bit."""
+    args, maxiter = molecule_systems('rectangular')
+    x, iters = pcg_stream_reference(*args, maxiter)
+    x_d, iters_d = pcg_stream_reference(*molecule_systems(case)[0], maxiter)
+    assert torch.equal(x, x_d) and torch.equal(iters, iters_d)
+
+
+@pytest.mark.parametrize('P,N1,grid,ctas,want', [
+    (21, 272, 132, None, [(21, 6)]),        # the protein Gram's chunk
+    (1, 272, 132, None, [(1, 132)]),        # a lone pair takes the grid
+    (1, 88, 132, None, [(1, 88)]),          # ... at most N1 CTAs a pair
+    (528, 72, 132, None, [(132, 1)] * 4),   # more pairs than the grid
+    (140, 272, 132, None, [(132, 1), (8, 16)]),   # the last launch spreads
+    (300, 88, 132, None, [(132, 1), (132, 1), (36, 3)]),
+    (21, 272, 132, 7, [(18, 7), (3, 7)]),   # a forced C, every launch
+    (5, 16, 132, 132, [(1, 132)] * 5),
+    (0, 16, 132, None, []),
+])
+def test_stream_launch_plan(P, N1, grid, ctas, want):
+    plan = stream_launch_plan(P, N1, grid, ctas)
+    assert plan == want
+    assert sum(pairs for pairs, _ in plan) == P
+    assert all(pairs * C <= grid for pairs, C in plan)
+
+
+@pytest.mark.parametrize('grid,ctas', [(0, None), (132, 0), (132, 133)])
+def test_stream_launch_plan_rejects(grid, ctas):
+    with pytest.raises(ValueError):
+        stream_launch_plan(4, 16, grid, ctas)
+
+
 @pytest.mark.parametrize('P,N1,grid,want', [
     (21, 272, 132, 6),      # the protein Gram's chunk: 6 CTAs a pair
     (1, 272, 132, 132),     # a lone protein pair takes the whole grid
     (1, 88, 132, 88),       # ... but no more CTAs than side-1 nodes
     (3, 88, 132, 44),
     (132, 272, 132, 1),
-    (496, 72, 132, 1),      # more pairs than the grid: several launches
+    (496, 72, 132, 1),      # more pairs than one launch takes
     (0, 16, 132, 16),
 ])
 def test_stream_ctas_per_pair(P, N1, grid, want):
