@@ -91,8 +91,16 @@ and checks every part of them:
    4-byte offset; and dead edges between live ones on both sides), 3
    molecules against a graph with a node of degree 36 and one of degree
    0 (``testing.hub_molecule_graph``), and G + 8 pairs of the (24, 24)
-   chunk (G the cooperative grid), whose two launches take different C:
-   max |dx| <= 1e-5 * max |x| for all;
+   chunk (G the cooperative grid), whose two launches take different C;
+   and on the plans of larger pairs (``testing.stream_plan_kind``), each
+   checked to be that plan: side 2's list in device memory on a self pair
+   of a 1050-residue categorical contact map, rows cut into chunks with z
+   and p staged beside them on a 1500-residue one, and these two, the
+   chunks with the list in device memory and the chunks with z, p and the
+   list in device memory forced on the lone protein pair with M2 % 4 == 3
+   by a smaller shared-memory limit
+   (``pcg_stream.smem_limit``, ``testing.stream_limit_for``; at least 3
+   chunks a row): max |dx| <= 1e-5 * max |x| for all;
 24. (run after 6) ``pcg_cluster`` on the mid-size chunks as the main path
     builds them (phase 8's 56-63 and 48-71-atom molecules, one batch each;
     the first chunk of the QM7 Gram's factory group of m = 352, phase 23):
@@ -127,7 +135,10 @@ and checks every part of them:
    ``pcg_stream`` on one protein chunk and on a lone protein pair, beside
    the twin on both, its shared-memory plan, and its prologue (maxiter 0:
    the live-flag scan, the sort and the solve's set-up) and cost a step
-   (``step_split``, device time); ``pcg_stream`` and ``pcg_resident`` on
+   (``step_split``, device time); phase 6's 1500-residue pair under its
+   chunked plan and under the two that read the list, and z, p and the
+   list, from device memory (events, device time, prologue and cost a
+   step, the twin, the bound); ``pcg_stream`` and ``pcg_resident`` on
    the (24, 24) molecule chunk, the CG steps of both; the protein Gram's
    wall time per build, its peak device memory
    (``torch.cuda.max_memory_allocated``) and the ``pcg_stream``
@@ -431,6 +442,11 @@ BUILD_REPEATS = 5     # timed molecule Gram builds
 PROTEIN_REPEATS = 3   # timed protein Gram builds
 #: the protein slice: protein_niche_set(seed, n, residue range)
 PROTEINS = (13, 6, (180, 280))
+#: pcg_stream's plans of larger pairs, each on a self pair of one
+#: categorical contact map of that many residues (protein_niche_set(13, 1,
+#: ...)): side 2's list in device memory, and rows cut into chunks (z, p
+#: and the list in shared memory)
+LARGE_PAIRS = ((1050, 'list_in_device'), (1500, 'chunked'))
 #: bench_protein.py's classes: (label, random_protein_set(seed, n, range))
 PROTEIN_CLASSES = (('150-300', 7, 11, (150, 300)),
                    ('400-600', 8, 6, (400, 600)),
@@ -3154,7 +3170,7 @@ def main():
         stream_workspace_bytes)
     from graphdot_tpu_torch.testing import (
         hub_molecule_graph, protein_niche_set, random_molecule_set,
-        with_dead_edges)
+        stream_limit_for, stream_plan_kind, with_dead_edges)
 
     say('== 1. device')
     card = nvidia_smi()
@@ -3502,6 +3518,61 @@ def main():
                   f'mean {float(it_a.float().mean()):.3f}, twin '
                   f'{float(it_r.float().mean()):.3f}')
     del x_a, x_b, x_r, edge_cases
+    # the plans of larger pairs: side 2's list in device memory, and rows
+    # cut into chunks, each on a pair of its size under the default plan,
+    # and forced on the lone protein pair with M2 % 4 == 3 by a smaller
+    # shared-memory limit (its chunks' copies start at every 4-byte
+    # offset), with the chunked plans that read the list, and z, p and the
+    # list, from device memory
+    plan_cases, large_args = [], {}
+    for n_res, kind in LARGE_PAIRS:
+        xl_graph = protein_niche_set(PROTEINS[0], 1, (n_res, n_res + 1))
+        bb, bbd, _ = pkernel._prepare_batch(xl_graph)
+        zero = torch.zeros(1, dtype=torch.long, device='cuda')
+        large_args[kind] = systems(pkernel, bbd, bbd, zero, zero,
+                                   pkernel.maxiter(bb.node_mask.shape[1]))
+        plan_cases.append((f'a self pair of a {n_res}-residue categorical '
+                           'contact map', large_args[kind], None, kind))
+    odd = with_dead_edges(lone[:-1], 'odd_m2') + [lone[-1]]
+    odd_cols = (odd[0][0] != 0).any(dim=0).nonzero()
+    odd_shapes = (*odd[0].shape[1:], *odd[5].shape[1:])
+    for kind in ('list_in_device', 'chunked', 'chunked_list_in_device',
+                 'chunked_l2'):
+        limit = stream_limit_for(*odd_shapes, 'cuda', kind,
+                                 span=int(odd_cols.max() - odd_cols.min())
+                                 + 1)
+        plan_cases.append(('the lone protein pair with M2 % 4 == 3 under '
+                           f'{limit} bytes of shared memory', odd, limit,
+                           kind))
+    stream_plans = {}
+    for what, sys_args, limit, kind in plan_cases:
+        pcg_stream.smem_limit = limit
+        try:
+            shapes = (*sys_args[0].shape[1:], *sys_args[5].shape[1:])
+            case_plan = stream_plan(*shapes, 'cuda')
+            stream_plans[what] = case_plan
+            check(stream_plan_kind(case_plan) == kind,
+                  f'{what} (M1, M2, N1, N2 = {shapes}): a {kind} plan '
+                  f'{case_plan}')
+            x_r, it_r = pcg_stream_reference(*sys_args)
+            scale = float(x_r.abs().max())
+            for ctas in (None, 3):
+                x_a, it_a = pcg_stream(*sys_args, ctas_per_pair=ctas)
+                used = pcg_stream.last_ctas_per_pair
+                x_b, it_b = pcg_stream(*sys_args, ctas_per_pair=ctas)
+                torch.cuda.synchronize()
+                err = float((x_a - x_r).abs().max())
+                stream_err = max(stream_err, err)
+                check(bool(torch.isfinite(x_a).all())
+                      and err <= 1e-5 * scale and torch.equal(x_a, x_b)
+                      and torch.equal(it_a, it_b),
+                      f'{what}, C = {used}: max |x_stream - x_twin| = '
+                      f'{err:.3e} <= 1e-5 * max |x| = {1e-5 * scale:.3e}, '
+                      f'two runs bitwise equal; CG steps {it_a.tolist()}, '
+                      f'twin {it_r.tolist()}')
+        finally:
+            pcg_stream.smem_limit = None
+    del x_a, x_b, x_r, plan_cases, odd, large_args['list_in_device']
 
     say('== 24. pcg_cluster: build and twin checks on the mid-size chunks')
     build_report('pcg_cluster')
@@ -3621,6 +3692,39 @@ def main():
             f'({bound[1]}), T streamed once a step {bound[2]:.4f} ms')
     lone_ctas = used
     lone_device_ms = device_ms(lambda: pcg_stream(*lone), 10, 'stream')
+    xl = large_args['chunked']
+    xl_shapes = (*xl[0].shape[1:], *xl[5].shape[1:])
+    xl_cols = (xl[0][0] != 0).any(dim=0).nonzero()
+    x_s, steps = pcg_stream(*xl)
+    xl_bound = pcg_bound(xl, x_s, steps)
+    xl_times = {
+        'cg_steps': steps.tolist(), 'bound_ms': xl_bound[0],
+        'stream_floor_ms': xl_bound[2],
+        'T_bytes': xl[0].numel() * xl[0].element_size(),
+        'plain_ms': cuda_ms(lambda: pcg_stream_reference(*xl), reps=1)}
+    # the default plan (z, p and the list in shared memory), then the
+    # chunked plans that read the list, and z, p and the list, from device
+    # memory, forced by smaller limits
+    for kind in ('chunked', 'chunked_list_in_device', 'chunked_l2'):
+        limit = None if kind == 'chunked' else stream_limit_for(
+            *xl_shapes, 'cuda', kind, chunks=1,
+            span=int(xl_cols.max() - xl_cols.min()) + 1)
+        pcg_stream.smem_limit = limit
+        try:
+            xl_ms = cuda_ms(lambda: pcg_stream(*xl), 3)
+            xl_times[kind] = {
+                'smem_limit': limit,
+                'plan': stream_plan(*xl_shapes, 'cuda'),
+                'ctas_per_pair': pcg_stream.last_ctas_per_pair, 'ms': xl_ms,
+                'device_ms': device_ms(lambda: pcg_stream(*xl), 3,
+                                       'stream'),
+                'split': step_split(pcg_stream, xl, 'stream',
+                                    steps=(4, 8))}
+        finally:
+            pcg_stream.smem_limit = None
+    say(f'  pcg_stream, the chunked plans on the {LARGE_PAIRS[1][0]}-residue '
+        f'self pair: {json.dumps(xl_times)}')
+    del x_s, xl, large_args
     stream_split = {}
     for what, sys_args in (('chunk', p_args), ('lone', lone)):
         stream_split[what] = step_split(pcg_stream, sys_args, 'stream',
@@ -4116,6 +4220,7 @@ def main():
             'bound_ms': stream_times['lone', 'bound'][0],
             'stream_floor_ms': stream_times['lone', 'bound'][2],
             'split': stream_split['lone']},
+        'large_pair': xl_times, 'plans': stream_plans,
         'launches_by_path': by_path('pcg_stream'),
     }, {
         'name': 'pcg_packed', 'route': 'cuda',

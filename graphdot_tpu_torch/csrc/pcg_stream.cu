@@ -30,8 +30,10 @@
 //    node) of each side's live edges by source, into sorted sources,
 //    destinations, permutations and row pointers, its counts in shared
 //    memory where they fit and in the workspace otherwise. Side 2's sorted
-//    list is packed as (column of T, destination) in 16 bits each, and its
-//    live columns' span [lo, hi] is kept. No copy of T is made.
+//    list is packed as (column of T, destination) in one 32-bit entry, the
+//    column in the low cbits (16 where M2 and N2 fit 16 bits, else the bit
+//    width of M2 - 1), and its live columns' span [lo, hi] is kept. No copy
+//    of T is made.
 // 3. `pcg_stream_kernel`, launched cooperatively with C CTAs per pair (C
 //    chosen per launch by the caller), runs the whole PCG. CTA c of a pair
 //    owns a contiguous range [a_c, a_{c+1}) of side-1 source nodes, cut at
@@ -55,6 +57,19 @@
 // refills the slot. Columns stay in T's order in shared memory: pass 1
 // reaches side-2 node i2's live columns through its sorted list (the
 // column and its destination, packed).
+//
+// A pair whose row does not fit three stages beside its rows of z and p
+// takes a chunked plan: R = 1, and a stage is a chunk of CW columns of the
+// live span (CW a multiple of 32, as wide as shared memory allows), so a
+// row is nch = ceil(span / CW) stages. The producer stages the row's z and
+// p beside each chunk while a chunk is at least as wide as they are, side
+// 2's list staying in shared memory where it fits too (a list read from
+// device memory puts an L2 load at the head of every product's chain);
+// beyond that (N2 above about 4,400) z and p stay in device memory and the
+// consumers read them through L2 (__ldcg), as the producer would have. A
+// node's entries are in column order, so each lane keeps a cursor into its
+// node's list from chunk to chunk, and the row's sum so far rides in the
+// carry as an open segment does between stages.
 //
 // Layout of a stage's work: lane l of a warp sits on row l % R of the
 // stage and on node l / R of a group of NG = 32 / R side-2 nodes (R = 32
@@ -117,8 +132,13 @@
 // NS stages of R rows of T (ldT floats), z and p (ldz floats each), side
 // 2's sorted list where it fits (else it is read from the workspace
 // through L1), its row pointers, the node order and the carries: the
-// largest R whose 3 stages fit, so pairs with ldT + 2 ldz up to about
-// 19,000 floats run.
+// largest R whose 3 stages fit, which holds pairs with ldT + 2 ldz up to
+// about 19,000 floats (a categorical contact map of about 1,100 residues).
+// Beyond that the chunked plans run any M2 (up to 2^(32 - bit width of N2
+// - 1) for the list's entries) with N2 up to about 14,000 nodes: their
+// shared memory is 3 chunks (with z and p up to N2 of about 4,400) plus
+// four words a side-2 node (row pointers, order, carries, cursors). The
+// plan that reads z and p from L2 pays two scattered L2 loads a product.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -150,77 +170,136 @@ __host__ __device__ inline size_t round_up(size_t a, size_t b) {
 
 // The solve's shared-memory plan, in 4-byte words from the block's base:
 // the mbarriers (full[NS], empty[NS]) first, then the ring of NS stages
-// (T: R x ldT, z: R x ldz, p: R x ldz), side 2's sorted list (lists = 1),
-// its row pointers, its nodes by degree (N2), the carries (N2) and the
-// block-sum scratch. R = 0 and smem = 0 when no plan fits.
+// (T: R x ldT, then with vec = 1 z: R x ldz and p: R x ldz), side 2's
+// sorted list (lists = 1), its row pointers, its nodes by degree (N2), the
+// carries (N2), the list cursors (N2, chunked plans only) and the
+// block-sum scratch. CW = 0: a stage holds whole rows of the live span;
+// else R = 1 and a stage holds CW columns of it (a chunk). vec: z and p
+// are staged (else read from device memory). cbits: the bits
+// of a list entry that hold the column, the rest hold the destination.
+// R = 0 and smem = 0 when no plan fits.
 struct Plan {
-    int R, NS, ldT, ldv, ldz, lists, stage;
-    int ring, list, rowptr2, order2, carry, red;
+    int R, NS, ldT, ldv, ldz, lists, vec, CW, cbits;
+    int stage, ring, list, rowptr2, order2, carry, cur, red;
     size_t smem;
 };
 
+__host__ __device__ inline int bit_width(int v) {   // bits of v >= 0
+    int b = 0;
+    while (v >> b) ++b;
+    return b;
+}
+
+// The plan's offsets after the ring, for NS stages of `stage` words; the
+// total in P.smem. Returns whether it fits `limit` bytes.
+__host__ __device__ inline bool lay_out(Plan &P, int NS, size_t stage,
+                                        int lists, int M2, int N2,
+                                        size_t limit) {
+    size_t o = 4 * static_cast<size_t>(NS);   // mbarriers
+    P.ring = static_cast<int>(o);
+    o += NS * stage;
+    P.list = static_cast<int>(o);
+    if (lists) o += round_up(M2, 4);
+    P.rowptr2 = static_cast<int>(o);
+    o += round_up(N2 + 1, 4);
+    P.order2 = static_cast<int>(o);
+    o += round_up(N2, 4);
+    P.carry = static_cast<int>(o);
+    o += round_up(N2, 4);
+    P.cur = static_cast<int>(o);
+    if (P.CW) o += round_up(N2, 4);
+    P.red = static_cast<int>(o);
+    o += round_up(2 * kWarps + 4, 4);
+    P.NS = NS;
+    P.lists = lists;
+    P.stage = static_cast<int>(stage);
+    P.smem = o * sizeof(float);
+    return P.smem <= limit;
+}
+
+// The first plan that fits `limit` bytes, in this order: whole rows with z
+// and p staged beside them, the largest R of 32, 16, ..., 1 with 4 or 3
+// stages and side 2's list in shared memory, then without it; else chunks
+// of a row (R = 1, 3 stages) with z and p staged beside them and the list
+// in shared memory, then in device memory, then z and p read from device
+// memory too.
 __host__ __device__ inline Plan make_plan(int M2, int N2, size_t limit) {
     Plan P = {};
-    if (M2 >= 65536 || N2 >= 65536) return P;   // the list's 16-bit fields
+    // 16 wherever both fit (every whole-row plan: the consumers' hot loop
+    // then shifts and masks by constants), else the bit width of M2 - 1
+    P.cbits = M2 <= 65536 && N2 <= 65536 ? 16
+                                         : bit_width(M2 > 1 ? M2 - 1 : 1);
+    if (P.cbits + bit_width(N2 > 1 ? N2 - 1 : 1) > 32) return P;
     P.ldv = static_cast<int>(round_up(N2 > 0 ? N2 : 1, 4));
-    P.ldT = static_cast<int>(round_up((M2 > 0 ? M2 : 1) + 3, 4));
-    while (P.ldT % 32 != 4) P.ldT += 4;
     P.ldz = P.ldv;
     while (P.ldz % 32 != 4) P.ldz += 4;
+    P.ldT = static_cast<int>(round_up((M2 > 0 ? M2 : 1) + 3, 4));
+    while (P.ldT % 32 != 4) P.ldT += 4;
+    P.vec = 1;
     const int opts[4][2] = {{4, 1}, {3, 1}, {4, 0}, {3, 0}};   // NS, lists
     for (int R = 32; R >= 1; R >>= 1) {
         for (const auto &opt : opts) {
-            size_t o = 4 * static_cast<size_t>(opt[0]);   // mbarriers
             const size_t stage =
                 static_cast<size_t>(R) * (P.ldT + 2 * P.ldz);
-            const size_t ring = o;
-            o += opt[0] * stage;
-            const size_t list = o;
-            if (opt[1]) o += round_up(M2, 4);
-            const size_t rowptr2 = o;
-            o += round_up(N2 + 1, 4);
-            const size_t order2 = o;
-            o += round_up(N2, 4);
-            const size_t carry = o;
-            o += round_up(N2, 4);
-            const size_t red = o;
-            o += round_up(2 * kWarps + 4, 4);
-            if (o * sizeof(float) <= limit) {
+            if (lay_out(P, opt[0], stage, opt[1], M2, N2, limit)) {
                 P.R = R;
-                P.NS = opt[0];
-                P.lists = opt[1];
-                P.stage = static_cast<int>(stage);
-                P.ring = static_cast<int>(ring);
-                P.list = static_cast<int>(list);
-                P.rowptr2 = static_cast<int>(rowptr2);
-                P.order2 = static_cast<int>(order2);
-                P.carry = static_cast<int>(carry);
-                P.red = static_cast<int>(red);
-                P.smem = o * sizeof(float);
                 return P;
             }
         }
     }
-    return P;
+    // chunks of a row (R = 1, 3 stages) as wide as the words left for the
+    // ring allow, the width 4 mod 32 (as ldT above): z and p staged beside
+    // a chunk while it is at least as wide as their rows, first with side
+    // 2's list in shared memory, then without; else z and p read from
+    // device memory with a chunk of at least 36
+    P.CW = 1;   // lay out the cursors
+    const size_t words = limit / sizeof(float);
+    const int copts[3][2] = {{1, 1}, {1, 0}, {0, 0}};   // vec, lists
+    for (const auto &copt : copts) {
+        const int vec = copt[0], lists = copt[1];
+        const size_t zp = vec ? 2 * static_cast<size_t>(P.ldz) : 0;
+        lay_out(P, 3, 0, lists, M2, N2, limit);
+        const size_t fixed = P.smem / sizeof(float) + 3 * zp;
+        size_t room = words > fixed ? (words - fixed) / 3 : 0;
+        if (room > static_cast<size_t>(P.ldT)) room = P.ldT;
+        int ldT = static_cast<int>(room);
+        while (ldT > 0 && ldT % 32 != 4) --ldT;
+        if (ldT < (vec && P.ldz > 36 ? P.ldz : 36)) continue;
+        P.vec = vec;
+        P.ldT = ldT;
+        P.CW = ldT - 4;   // a multiple of 32: a chunk's copy starts <= 12
+                          // bytes early and ends on a 16-byte boundary
+        if (!lay_out(P, 3, ldT + zp, lists, M2, N2, limit)) return Plan{};
+        P.R = 1;
+        return P;
+    }
+    return Plan{};
 }
 
 // Workspace layout: byte offsets into the caller's buffer, 256-aligned.
+// The sort's counts (hist_ints a side of a pair) take shared memory where
+// they fit (hist_in_smem) and the workspace only otherwise.
 struct Workspace {
     size_t vec, live1, live2, meta, src1s, dst1s, perm1, rowptr1, perm2,
         dst2s, list2, rowptr2, order2, hist, part, finished;
-    size_t hist_ints;   // the sort's counts, a side of a pair
+    size_t hist_ints;
+    int hist_in_smem;
     size_t bytes;
 };
 
-// For P pairs solved by grids of at most `grid` CTAs.
+// For P pairs solved by grids of at most `grid` CTAs, the sort under
+// `smem_limit` bytes of shared memory.
 inline Workspace make_workspace(int P, int M1, int M2, int N1, int N2,
-                                int grid) {
+                                int grid, int smem_limit) {
     Workspace W;
     const size_t p = static_cast<size_t>(P);
     const size_t ldv = round_up(N2 > 0 ? N2 : 1, 4);
     const size_t h1 = static_cast<size_t>((M1 + 31) / 32) * N1;
     const size_t h2 = static_cast<size_t>((M2 + 31) / 32) * N2;
     W.hist_ints = h1 > h2 ? h1 : h2;
+    // the sort kernel's static shared memory takes the rest
+    W.hist_in_smem = W.hist_ints * sizeof(int) + 64 <=
+                     static_cast<size_t>(smem_limit);
     size_t o = 0;
     auto take = [&o](size_t bytes) {
         const size_t at = o;
@@ -240,7 +319,7 @@ inline Workspace make_workspace(int P, int M1, int M2, int N1, int N2,
     W.list2 = take(p * M2 * sizeof(unsigned));
     W.rowptr2 = take(p * (N2 + 1) * sizeof(int));
     W.order2 = take(p * N2 * sizeof(int));
-    W.hist = take(p * 2 * W.hist_ints * sizeof(int));
+    W.hist = take(W.hist_in_smem ? 0 : p * 2 * W.hist_ints * sizeof(int));
     W.part = take(static_cast<size_t>(grid) * kSlots * sizeof(float));
     W.finished = take(sizeof(int));
     W.bytes = o;
@@ -348,10 +427,11 @@ stream_live_kernel(const float *__restrict__ T, int *__restrict__ live1,
 
 // One CTA a side of a pair: blockIdx.x 0 sorts side 1, 1 sorts side 2.
 // meta[pair] = (L1, L2, lo, hi): the live counts and side 2's live span
-// (lo = 0, hi = -1 when no column is live). order2 lists side 2's nodes by
-// live degree, highest first, ties in node order: the order in which the
-// solve's warps take them, so that the nodes a warp walks at once have
-// lists of about one length.
+// (lo = 0, hi = -1 when no column is live); side 2's sorted list as
+// entries (column of T) | (destination << cbits). order2 lists side 2's
+// nodes by live degree, highest first, ties in node order: the order in
+// which the solve's warps take them, so that the nodes a warp walks at once
+// have lists of about one length.
 __global__ void __launch_bounds__(kSortThreads)
 stream_sort_kernel(const int *__restrict__ esrc1,
                    const int *__restrict__ edst1,
@@ -362,7 +442,8 @@ stream_sort_kernel(const int *__restrict__ esrc1,
                    size_t hist_ints, int hist_in_smem, int *meta,
                    int *src1s, int *dst1s, int *perm1, int *rowptr1,
                    int *perm2, int *dst2s, unsigned *list2, int *rowptr2,
-                   int *order2, int M1, int M2, int N1, int N2) {
+                   int *order2, int M1, int M2, int N1, int N2,
+                   int cbits) {
     extern __shared__ int hist_smem[];
     __shared__ int span[2];
     const size_t pair = blockIdx.y;
@@ -393,7 +474,7 @@ stream_sort_kernel(const int *__restrict__ esrc1,
     unsigned *lst = list2 + pair * M2;
     for (int q = threadIdx.x; q < L2; q += kSortThreads)
         lst[q] = static_cast<unsigned>(pm[q]) |
-                 (static_cast<unsigned>(ds[q]) << 16);
+                 (static_cast<unsigned>(ds[q]) << cbits);
     int *order = order2 + pair * N2;
     for (int i = threadIdx.x; i < N2; i += kSortThreads) {
         const int d = rp[i + 1] - rp[i];
@@ -520,16 +601,44 @@ struct Problem {
 };
 
 // What the producer and the consumers of one CTA share for a matvec.
+// A stage is chunk j of the rows [qs, qs + R) of the CTA's sorted rows:
+// columns [lo + j CW, lo + (j + 1) CW) of the live span, nch chunks a row
+// (CW = span and nch = 1 for plans of whole rows).
 struct Stream {
     const float *T;      // the pair's T
     const int *perm1, *src1s, *dst1s;
-    int M2, lo, span, R0, R1, n_st, gstage;
+    int M2, lo, span, CW, nch, R0, R1, n_st, gstage;
 };
 
+// Stage st of a matvec: its first sorted row, its rows, its chunk, and the
+// chunk's first column and column count.
+struct StageAt {
+    int qs, nrows, j, c0, cnt;
+};
+
+__device__ __forceinline__ StageAt stage_at(const Stream &S, int R, int st) {
+    StageAt a;
+    const int blk = st / S.nch;
+    a.j = st - blk * S.nch;
+    a.qs = S.R0 + blk * R;
+    a.nrows = min(R, S.R1 - a.qs);
+    a.c0 = S.lo + a.j * S.CW;
+    a.cnt = min(S.CW, S.span - a.j * S.CW);
+    return a;
+}
+
+// Byte address in T of row perm1[q], column c.
+__device__ __forceinline__ size_t row_at(const Stream &S, int q, int c) {
+    return reinterpret_cast<size_t>(
+        S.T + static_cast<size_t>(__ldg(S.perm1 + q)) * S.M2 + c);
+}
+
 // Warp 0: the stages of one matvec, in order. Lane l copies row l of the
-// stage (row perm1[q] of T over the live span, by one bulk copy), then all
-// lanes copy the stage's rows of z and of the previous p (16 bytes a
-// cp.async) and arrive when theirs are done.
+// stage (the stage's columns of row perm1[q] of T, by one bulk copy), then,
+// where the plan stages them (kStaged), all lanes copy the stage's rows of
+// z and of the previous p (16 bytes a cp.async); every lane arrives when
+// its copies are done.
+template <bool kStaged>
 __device__ void produce(const Plan &pl, const Stream &S, float *ring,
                         uint64_t *full, uint64_t *empty, const float *z,
                         const float *pprev) {
@@ -538,19 +647,17 @@ __device__ void produce(const Plan &pl, const Stream &S, float *ring,
     for (int st = 0; st < S.n_st; ++st) {
         const int g = S.gstage + st, slot = g % pl.NS;
         const unsigned parity = (g / pl.NS) & 1;
-        const int qs = S.R0 + st * R;
-        const int nrows = min(R, S.R1 - qs);
+        const StageAt sa = stage_at(S, R, st);
         unsigned bytes = 0;
         const char *from = nullptr;
         int jrow = 0;
-        if (lane < nrows) {
-            const int q = qs + lane;
-            const size_t at = reinterpret_cast<size_t>(
-                S.T + static_cast<size_t>(__ldg(S.perm1 + q)) * S.M2 + S.lo);
+        if (lane < sa.nrows) {
+            const int q = sa.qs + lane;
+            const size_t at = row_at(S, q, sa.c0);
             from = reinterpret_cast<const char *>(at & ~size_t(15));
             bytes = static_cast<unsigned>(
-                round_up((at & 15) + static_cast<size_t>(S.span) * 4, 16));
-            jrow = __ldg(S.dst1s + q);
+                round_up((at & 15) + static_cast<size_t>(sa.cnt) * 4, 16));
+            if (kStaged) jrow = __ldg(S.dst1s + q);
         }
         unsigned total = bytes;
 #pragma unroll
@@ -558,18 +665,21 @@ __device__ void produce(const Plan &pl, const Stream &S, float *ring,
             total += __shfl_xor_sync(0xffffffffu, total, o);
         mbar_wait(empty + slot, parity ^ 1);
         float *Ts = ring + static_cast<size_t>(slot) * pl.stage;
-        float *Zs = Ts + R * pl.ldT;
-        float *Ps = Zs + R * ldz;
         if (lane == 0) mbar_expect(full + slot, total);
         __syncwarp();
-        if (lane < nrows) bulk_copy(Ts + lane * pl.ldT, from, bytes,
-                                    full + slot);
-        for (int rr = 0; rr < nrows; ++rr) {
-            const size_t j =
-                static_cast<size_t>(__shfl_sync(0xffffffffu, jrow, rr)) * ldv;
-            for (int k = lane; k < chunks; k += 32) {
-                cp_async16(Zs + rr * ldz + 4 * k, z + j + 4 * k);
-                cp_async16(Ps + rr * ldz + 4 * k, pprev + j + 4 * k);
+        if (lane < sa.nrows) bulk_copy(Ts + lane * pl.ldT, from, bytes,
+                                       full + slot);
+        if (kStaged) {
+            float *Zs = Ts + R * pl.ldT;
+            float *Ps = Zs + R * ldz;
+            for (int rr = 0; rr < sa.nrows; ++rr) {
+                const size_t j = static_cast<size_t>(
+                                     __shfl_sync(0xffffffffu, jrow, rr)) *
+                                 ldv;
+                for (int k = lane; k < chunks; k += 32) {
+                    cp_async16(Zs + rr * ldz + 4 * k, z + j + 4 * k);
+                    cp_async16(Ps + rr * ldz + 4 * k, pprev + j + 4 * k);
+                }
             }
         }
         cp_async_arrive(full + slot);
@@ -580,37 +690,47 @@ __device__ void produce(const Plan &pl, const Stream &S, float *ring,
 // over every stage of one matvec, storing U of the CTA's source nodes. Lane
 // l sits on row l % R of the stage and node l / R of a group of NG = 32 / R
 // nodes, the groups taken in order2's order (nodes by degree); the warp
-// takes the groups cw, cw + kConsumers, ...
-template <bool kSmemList>
+// takes the groups cw, cw + kConsumers, ..., the same nodes in every stage.
+// A chunked plan (kChunked, R = 1) walks a node's list a chunk at a time: a
+// node's entries are in column order (the sort keeps edge order within a
+// node), so a chunk takes them from the node's cursor up to its last
+// column, and the row's sum so far rides in the carry from chunk to chunk.
+// !kStaged: z and p are read from device memory through L2.
+template <bool kSmemList, bool kStaged, bool kChunked>
 __device__ __forceinline__ void consume(const Plan &pl, const Stream &S,
                                         const float *ring, uint64_t *full,
                                         uint64_t *empty,
                                         const unsigned *list,
                                         const int *rowptr2,
                                         const int *order2, float *carry,
-                                        float *U, float beta, int N2,
-                                        int cw) {
+                                        int *cur, float *U, const float *z,
+                                        const float *pprev, float beta,
+                                        int N2, int cw) {
     const int lane = threadIdx.x & 31;
     const int R = pl.R, NG = 32 / R, ldT = pl.ldT, ldv = pl.ldv,
-              ldz = pl.ldz;
+              ldz = pl.ldz, cb = kChunked ? pl.cbits : 16;
+    const unsigned cmask = (1u << cb) - 1u;
     const int r = lane % R, u = lane / R;
     int prev_last = -2;
     for (int st = 0; st < S.n_st; ++st) {
         const int g = S.gstage + st, slot = g % pl.NS;
         const unsigned parity = (g / pl.NS) & 1;
-        const int qs = S.R0 + st * R;
-        const int nrows = min(R, S.R1 - qs);
+        const StageAt sa = stage_at(S, R, st);
+        const int nrows = sa.nrows;
         const bool valid = r < nrows;
         int src = -1, rbase = 0;
+        size_t jrow = 0;
         if (valid) {
-            const int q = qs + r;
-            const size_t at = reinterpret_cast<size_t>(
-                S.T + static_cast<size_t>(__ldg(S.perm1 + q)) * S.M2 + S.lo);
-            rbase = r * ldT + static_cast<int>((at & 15) >> 2) - S.lo;
+            const int q = sa.qs + r;
+            const size_t at = row_at(S, q, sa.c0);
+            rbase = r * ldT + static_cast<int>((at & 15) >> 2) - sa.c0;
             src = __ldg(S.src1s + q);
+            if (!kStaged)
+                jrow = static_cast<size_t>(__ldg(S.dst1s + q)) * ldv;
         }
-        const int next_src =
-            qs + nrows < S.R1 ? __ldg(S.src1s + qs + nrows) : -3;
+        const int next_src = sa.qs + nrows < S.R1
+                                 ? __ldg(S.src1s + sa.qs + nrows)
+                                 : -3;
         // the stage's segments: rows of one source are consecutive; ss is
         // the first row of this row's segment
         const int up = __shfl_up_sync(0xffffffffu, src, 1, R);
@@ -624,29 +744,46 @@ __device__ __forceinline__ void consume(const Plan &pl, const Stream &S,
         const bool tail = valid && (r == last || src != down);
         const int first_src = __shfl_sync(0xffffffffu, src, 0);
         const int last_src = __shfl_sync(0xffffffffu, src, last);
-        const bool cont_in = first_src == prev_last;   // carried segment
-        const bool cont_out = last_src == next_src;    // carried onward
+        // carried in: a later chunk of the row, or the segment open at the
+        // end of the stage before; carried onward likewise
+        const bool cont_in = sa.j > 0 || first_src == prev_last;
+        const bool cont_out = sa.j < S.nch - 1 || last_src == next_src;
         prev_last = last_src;
         mbar_wait(full + slot, parity);
         const float *Ts = ring + static_cast<size_t>(slot) * pl.stage;
-        const float *Zs = Ts + R * ldT + r * ldz;
-        const float *Ps = Zs + R * ldz;
+        const float *Zs = kStaged ? Ts + R * ldT + r * ldz : z + jrow;
+        const float *Ps = kStaged ? Zs + R * ldz : pprev + jrow;
+        const int c1 = sa.c0 + sa.cnt;   // the chunk's end column
         for (int g0 = cw; g0 * NG < N2; g0 += kConsumers) {
             const int at = g0 * NG + u;
             const bool has = at < N2;
             const int i2 = has ? order2[at] : 0;
             const float cin = has ? carry[i2] : 0.f;
-            int k = has ? rowptr2[i2] : 0;
+            int k = has ? (kChunked && sa.j > 0 ? cur[i2] : rowptr2[i2]) : 0;
             const int k1 = has && valid ? rowptr2[i2 + 1] : 0;
             // each lane down its node's list
             float acc = 0.f;
+            if (!kChunked) {
 #pragma unroll 2
-            for (; k < k1; ++k) {
-                const unsigned e = list[k];
-                const int d2 = static_cast<int>(e >> 16);
-                const float pv = fmaf(beta, Ps[d2], Zs[d2]);
-                acc = fmaf(Ts[rbase + static_cast<int>(e & 0xffffu)], pv,
-                           acc);
+                for (; k < k1; ++k) {
+                    const unsigned e = list[k];
+                    const int d2 = static_cast<int>(e >> cb);
+                    const float pv = fmaf(beta, Ps[d2], Zs[d2]);
+                    acc = fmaf(Ts[rbase + static_cast<int>(e & cmask)], pv,
+                               acc);
+                }
+            } else {
+                for (; k < k1; ++k) {
+                    const unsigned e = list[k];
+                    const int col = static_cast<int>(e & cmask);
+                    if (col >= c1) break;
+                    const int d2 = static_cast<int>(e >> cb);
+                    const float pv =
+                        kStaged ? fmaf(beta, Ps[d2], Zs[d2])
+                                : fmaf(beta, __ldcg(Ps + d2), __ldcg(Zs + d2));
+                    acc = fmaf(Ts[rbase + col], pv, acc);
+                }
+                if (has && S.nch > 1) cur[i2] = k;
             }
             for (int d = 1; d < R; d <<= 1) {
                 const float t = __shfl_up_sync(0xffffffffu, acc, d, R);
@@ -668,8 +805,10 @@ __device__ __forceinline__ void consume(const Plan &pl, const Stream &S,
 
 // One cooperative grid of n_pairs * C CTAs: CTA blockIdx.x works on pair
 // pair0 + blockIdx.x / C, as its part blockIdx.x % C. kSmemList: side 2's
-// sorted list is in shared memory (Plan::lists).
-template <bool kSmemList>
+// sorted list is in shared memory (Plan::lists); kStaged: rows of z and p
+// are staged beside T's (Plan::vec); kChunked: rows of T come in chunks
+// (Plan::CW).
+template <bool kSmemList, bool kStaged, bool kChunked>
 __global__ void __launch_bounds__(kThreads, 1)
 pcg_stream_kernel(Problem P, Plan pl) {
     cg::grid_group grid = cg::this_grid();
@@ -679,6 +818,7 @@ pcg_stream_kernel(Problem P, Plan pl) {
     float *ring = smem + pl.ring;
     int *rowptr2 = reinterpret_cast<int *>(smem + pl.rowptr2);
     float *carry = smem + pl.carry;
+    int *cur = reinterpret_cast<int *>(smem + pl.cur);
     float *red = smem + pl.red;
 
     const int tid = threadIdx.x;
@@ -738,9 +878,11 @@ pcg_stream_kernel(Problem P, Plan pl) {
     S.M2 = M2;
     S.lo = lo;
     S.span = span;
+    S.CW = pl.CW ? pl.CW : max(span, 1);
+    S.nch = span > 0 ? (span + S.CW - 1) / S.CW : 1;
     S.R0 = rowptr1[a];   // the CTA's sorted rows of T
     S.R1 = rowptr1[a_next];
-    S.n_st = (S.R1 - S.R0 + pl.R - 1) / pl.R;
+    S.n_st = (S.R1 - S.R0 + pl.R - 1) / pl.R * S.nch;
     S.gstage = 0;
     float *slot = P.part + blockIdx.x * kSlots;
 
@@ -796,11 +938,11 @@ pcg_stream_kernel(Problem P, Plan pl) {
             // ---- U = the off-diagonal sums; pAp from them ----------------
             if (S.n_st > 0) {
                 if (warp == 0)
-                    produce(pl, S, ring, full, empty, z, pprev);
+                    produce<kStaged>(pl, S, ring, full, empty, z, pprev);
                 else
-                    consume<kSmemList>(pl, S, ring, full, empty, list,
-                                       rowptr2, order2, carry, U, beta, N2,
-                                       warp - 1);
+                    consume<kSmemList, kStaged, kChunked>(
+                        pl, S, ring, full, empty, list, rowptr2, order2,
+                        carry, cur, U, z, pprev, beta, N2, warp - 1);
                 S.gstage += S.n_st;
             }
             __syncthreads();   // U is stored
@@ -888,23 +1030,20 @@ pcg_stream_kernel(Problem P, Plan pl) {
 
 using SolveFn = void (*)(Problem, Plan);
 
-// The solve's instance for a plan: side 2's list in shared memory or not.
+// The solve's instance for a plan: whole rows or chunks, with side 2's
+// list in shared or device memory, and chunks with z and p staged or not.
 SolveFn solve_kernel(const Plan &plan) {
-    return plan.lists ? pcg_stream_kernel<true> : pcg_stream_kernel<false>;
+    if (plan.CW)
+        return plan.lists  ? pcg_stream_kernel<true, true, true>
+               : plan.vec ? pcg_stream_kernel<false, true, true>
+                          : pcg_stream_kernel<false, false, true>;
+    return plan.lists ? pcg_stream_kernel<true, true, false>
+                      : pcg_stream_kernel<false, true, false>;
 }
 
 }  // namespace
 
 extern "C" {
-
-// Dynamic shared memory the solve needs a block, in bytes, for a pair of
-// these shapes under `limit` bytes; 0 when no plan fits.
-size_t graphdot_pcg_stream_smem_bytes(int M1, int M2, int N1, int N2,
-                                      int limit) {
-    (void)M1;
-    (void)N1;
-    return make_plan(M2, N2, static_cast<size_t>(limit)).smem;
-}
 
 const char *graphdot_cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -943,10 +1082,11 @@ int graphdot_pcg_stream_grid(int M1, int M2, int N1, int N2, int smem_limit,
     return static_cast<int>(cudaSuccess);
 }
 
-// The stages' rows R and count NS, the strides of T's rows and of z's and
-// p's rows in a stage, and whether side 2's list sits in shared memory, of
-// the plan for these shapes under `limit` bytes, into out[0..4]; returns 0
-// when a plan fits, else cudaErrorInvalidValue.
+// The plan for these shapes under `limit` bytes, into out[0..7]: the
+// stages' rows R and count NS, the strides of T's rows and of z's and p's
+// rows in a stage, whether side 2's list and whether z and p sit in shared
+// memory, the columns of a chunk (0: whole rows) and the dynamic shared
+// memory in bytes. Returns 0 when a plan fits, else cudaErrorInvalidValue.
 int graphdot_pcg_stream_plan(int M1, int M2, int N1, int N2, int limit,
                              int *out) {
     (void)M1;
@@ -957,16 +1097,20 @@ int graphdot_pcg_stream_plan(int M1, int M2, int N1, int N2, int limit,
     out[2] = p.ldT;
     out[3] = p.ldz;
     out[4] = p.lists;
+    out[5] = p.vec;
+    out[6] = p.CW;
+    out[7] = static_cast<int>(p.smem);
     return p.R ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Bytes of the workspace `graphdot_pcg_stream` takes for P pairs solved by
-// cooperative grids of at most `grid` CTAs: the CG vectors, the live
-// flags, the sorted edge lists, permutations and row pointers, the sort's
-// counts and the block sums; nothing of T's size.
+// cooperative grids of at most `grid` CTAs under `smem_limit` bytes of
+// shared memory: the CG vectors, the live flags, the sorted edge lists,
+// permutations and row pointers, the sort's counts where they exceed
+// shared memory, and the block sums; nothing of T's size.
 size_t graphdot_pcg_stream_workspace_bytes(int P, int M1, int M2, int N1,
-                                           int N2, int grid) {
-    return make_workspace(P, M1, M2, N1, N2, grid).bytes;
+                                           int N2, int grid, int smem_limit) {
+    return make_workspace(P, M1, M2, N1, N2, grid, smem_limit).bytes;
 }
 
 // Marks, sorts and solves P pairs on `stream`, in the cooperative launches
@@ -976,8 +1120,8 @@ size_t graphdot_pcg_stream_workspace_bytes(int P, int M1, int M2, int N1,
 // retried. cudaErrorInvalidValue when no plan fits `smem_limit` or the
 // launches do not cover the P pairs with C >= 1,
 // cudaErrorCooperativeLaunchTooLarge when a launch exceeds the grid.
-// `work` holds `graphdot_pcg_stream_workspace_bytes` bytes for the same P
-// and grid, 256-byte aligned.
+// `work` holds `graphdot_pcg_stream_workspace_bytes` bytes for the same P,
+// grid and smem_limit, 256-byte aligned.
 int graphdot_pcg_stream(const float *T, const int *esrc1, const int *edst1,
                         const int *esrc2, const int *edst2,
                         const float *diag, const float *precond,
@@ -999,7 +1143,7 @@ int graphdot_pcg_stream(const float *T, const int *esrc1, const int *edst1,
         covered += pairs;
     }
     if (covered != P) return static_cast<int>(cudaErrorInvalidValue);
-    const Workspace ws = make_workspace(P, M1, M2, N1, N2, grid);
+    const Workspace ws = make_workspace(P, M1, M2, N1, N2, grid, smem_limit);
     char *base = static_cast<char *>(work);
     auto at = [base](size_t offset) { return base + offset; };
     int *live1 = reinterpret_cast<int *>(at(ws.live1));
@@ -1026,18 +1170,16 @@ int graphdot_pcg_stream(const float *T, const int *esrc1, const int *edst1,
         err = cudaGetLastError();
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    const size_t hist_bytes = ws.hist_ints * sizeof(int);
-    const int in_smem =
-        hist_bytes <= static_cast<size_t>(smem_limit) - 64 ? 1 : 0;
-    const size_t sort_smem = in_smem ? hist_bytes : 0;
+    const size_t sort_smem =
+        ws.hist_in_smem ? ws.hist_ints * sizeof(int) : 0;
     err = cudaFuncSetAttribute(stream_sort_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(sort_smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     stream_sort_kernel<<<dim3(2, P), kSortThreads, sort_smem, s>>>(
         esrc1, edst1, esrc2, edst2, live1, live2, hist, ws.hist_ints,
-        in_smem, meta, src1s, dst1s, perm1, rowptr1, perm2, dst2s, list2,
-        rowptr2, order2, M1, M2, N1, N2);
+        ws.hist_in_smem, meta, src1s, dst1s, perm1, rowptr1, perm2, dst2s,
+        list2, rowptr2, order2, M1, M2, N1, N2, plan.cbits);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const SolveFn fn = solve_kernel(plan);

@@ -486,15 +486,13 @@ def _stream_library():
     lib.graphdot_pcg_stream.argtypes = [ptr] * 12 + [cint] * 6 + [
         ptr] + [cint] * 3 + [ptr]
     lib.graphdot_pcg_stream.restype = cint
-    lib.graphdot_pcg_stream_smem_bytes.argtypes = [cint] * 5
-    lib.graphdot_pcg_stream_smem_bytes.restype = size
     lib.graphdot_pcg_stream_plan.argtypes = [cint] * 5 + [
         ctypes.POINTER(cint)]
     lib.graphdot_pcg_stream_plan.restype = cint
     lib.graphdot_pcg_stream_grid.argtypes = [cint] * 5 + [
         ctypes.POINTER(cint)]
     lib.graphdot_pcg_stream_grid.restype = cint
-    lib.graphdot_pcg_stream_workspace_bytes.argtypes = [cint] * 6
+    lib.graphdot_pcg_stream_workspace_bytes.argtypes = [cint] * 7
     lib.graphdot_pcg_stream_workspace_bytes.restype = size
     lib.graphdot_cuda_error_string.argtypes = [cint]
     lib.graphdot_cuda_error_string.restype = ctypes.c_char_p
@@ -745,20 +743,45 @@ def stream_launch_plan(P, N1, grid, ctas_per_pair=None):
     return plan
 
 
+def _stream_smem_limit(device):
+    """Bytes of shared memory :func:`pcg_stream`'s plan may take on the
+    CUDA ``device``: all a block can opt into, or less where
+    ``pcg_stream.smem_limit`` says so."""
+    limit = _smem_limit(device)
+    if pcg_stream.smem_limit is not None:
+        limit = min(limit, int(pcg_stream.smem_limit))
+    return limit
+
+
+def stream_plan(M1, M2, N1, N2, device):
+    """The shared-memory plan of :func:`pcg_stream`'s solve for pairs of
+    these shapes on the CUDA ``device``: {'rows' (R, rows of T a stage),
+    'stages' (NS), 'ldT', 'ldz' (floats a row of T, and of z and p, in a
+    stage), 'list_in_smem', 'vectors_in_smem' (side 2's list, and rows of
+    z and p, in shared memory), 'chunk_cols' (columns of T a stage when a
+    row is cut into chunks, else 0), 'smem_bytes'}. Raises when no plan
+    fits."""
+    lib = _stream_library()
+    limit = _stream_smem_limit(device)
+    out = (ctypes.c_int * 8)()
+    if lib.graphdot_pcg_stream_plan(M1, M2, N1, N2, limit, out):
+        raise ValueError(
+            f'no stage plan of the streaming kernel (3 stages of a chunk of '
+            f'a row of T) fits {limit} bytes of shared memory for a pair '
+            f'with M1={M1}, M2={M2}, N1={N1}, N2={N2}')
+    return dict(zip(('rows', 'stages', 'ldT', 'ldz', 'list_in_smem',
+                     'vectors_in_smem', 'chunk_cols', 'smem_bytes'), out))
+
+
 def stream_grid(M1, M2, N1, N2, device):
     """The most CTAs of :func:`pcg_stream`'s solve that the CUDA ``device``
     holds at once, for pairs of these shapes: its cooperative grid."""
+    stream_plan(M1, M2, N1, N2, device)   # raises when no plan fits
     lib = _stream_library()
-    limit = _smem_limit(device)
-    if not lib.graphdot_pcg_stream_smem_bytes(M1, M2, N1, N2, limit):
-        raise ValueError(
-            f'no stage plan of the streaming kernel (3 stages of a row of '
-            f'T, z and p) fits {limit} bytes of shared memory for a pair '
-            f'with M1={M1}, M2={M2}, N1={N1}, N2={N2}')
     grid = ctypes.c_int(0)
     with torch.cuda.device(_device_index(device)):
-        err = lib.graphdot_pcg_stream_grid(M1, M2, N1, N2, limit,
-                                           ctypes.byref(grid))
+        err = lib.graphdot_pcg_stream_grid(
+            M1, M2, N1, N2, _stream_smem_limit(device), ctypes.byref(grid))
     _raise_on(lib, err, 'pcg_stream grid size')
     return grid.value
 
@@ -767,25 +790,12 @@ def stream_workspace_bytes(P, M1, M2, N1, N2, device):
     """Bytes of the device workspace one :func:`pcg_stream` call on P pairs
     of these shapes allocates on the CUDA ``device``: the CG vectors, the
     live flags, the sorted edge lists, permutations and row pointers, the
-    sort's counts and the block sums. It grows with P (M1 + M2 + N1 N2 +
-    M1 N1 / 32 + M2 N2 / 32), not with M1 M2."""
+    sort's counts where they exceed shared memory, and the block sums. It
+    grows with P (M1 + M2 + N1 N2, and M1 N1 / 32 + M2 N2 / 32 where the
+    counts spill), not with M1 M2."""
     return _stream_library().graphdot_pcg_stream_workspace_bytes(
-        P, M1, M2, N1, N2, stream_grid(M1, M2, N1, N2, device))
-
-
-def stream_plan(M1, M2, N1, N2, device):
-    """The shared-memory plan of :func:`pcg_stream`'s solve for pairs of
-    these shapes on the CUDA ``device``: {'rows' (R, rows of T a stage),
-    'stages' (NS), 'ldT', 'ldz' (floats a row of T, and of z and p, in a
-    stage), 'list_in_smem', 'smem_bytes'}."""
-    lib = _stream_library()
-    limit = _smem_limit(device)
-    out = (ctypes.c_int * 5)()
-    _raise_on(lib, lib.graphdot_pcg_stream_plan(M1, M2, N1, N2, limit, out),
-              'pcg_stream plan')
-    return dict(zip(('rows', 'stages', 'ldT', 'ldz', 'list_in_smem'), out),
-                smem_bytes=lib.graphdot_pcg_stream_smem_bytes(
-                    M1, M2, N1, N2, limit))
+        P, M1, M2, N1, N2, stream_grid(M1, M2, N1, N2, device),
+        _stream_smem_limit(device))
 
 
 def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
@@ -795,9 +805,10 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
     Arguments and results as :func:`pcg_resident`. The kernel keeps T in
     device memory, reads it once to find the live edges, and streams each
     live row of T itself through shared memory once per CG step (bulk
-    copies of the span of the live columns); the wrapper allocates the
-    workspace (the CG vectors, the live flags, the sorted edge lists,
-    permutations and row pointers, the sort's counts; nothing of T's size)
+    copies of the span of the live columns, in chunks where a row exceeds
+    a stage); the wrapper allocates the workspace (the CG vectors, the
+    live flags, the sorted edge lists, permutations and row pointers, the
+    sort's counts where they exceed shared memory; nothing of T's size)
     with ``torch.empty``.
 
     The solve runs in cooperative grids of at most G CTAs
@@ -810,8 +821,10 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
     CUDA tensors launch the kernels on the current stream and add one to
     ``pcg_stream.launches`` a call; CPU tensors run
     :func:`pcg_stream_reference`. Raises when no stage plan fits a block's
-    shared memory (three stages of one row of T, z and p:
-    :func:`stream_plan`), for more than 65535 pairs (the preprocessing
+    shared memory (:func:`stream_plan`: rows too long for a stage are cut
+    into chunks, so only N2 beyond about 14,000 nodes with the default
+    limit, or a list entry of more than 32 bits, has none), for more than
+    65535 pairs (the preprocessing
     grids' last dimension), for a C outside [1, G], or when a launch
     fails; a refused cooperative launch is not retried.
     """
@@ -832,7 +845,7 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
                          f'got {P}')
     lib = _stream_library()
     device = _device_index(T.device)
-    limit = _smem_limit(T.device)
+    limit = _stream_smem_limit(T.device)
     grid = stream_grid(M1, M2, N1, N2, T.device)
     if ctas_per_pair is not None and ctas_per_pair > grid:
         raise ValueError(
@@ -848,7 +861,8 @@ def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
     # freed when this returns: the caching allocator hands it out again
     # only to work queued after the launch on the same stream
     work = torch.empty(
-        lib.graphdot_pcg_stream_workspace_bytes(P, M1, M2, N1, N2, grid),
+        lib.graphdot_pcg_stream_workspace_bytes(P, M1, M2, N1, N2, grid,
+                                                limit),
         dtype=torch.uint8, device=T.device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -870,6 +884,9 @@ pcg_stream.launches = 0
 #: CTAs a pair of the first launch of the last CUDA call of
 #: :func:`pcg_stream`
 pcg_stream.last_ctas_per_pair = None
+#: bytes of shared memory the plan may take (None: all a block can opt
+#: into); a smaller limit picks the plans of larger pairs on small ones
+pcg_stream.smem_limit = None
 
 
 #: the cluster sizes of :func:`pcg_cluster`, CTAs a system

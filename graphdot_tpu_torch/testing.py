@@ -2,7 +2,8 @@
 molecules and contact-map proteins (the same generators, seeds and
 numbers as :mod:`graphdot_tpu.testing`), the categorical-edge protein set
 of ``bench_protein.py``, and the edge cases of the streaming PCG kernel
-(a hub graph, dead edges between live ones, odd edge counts).
+(a hub graph, dead edges between live ones, odd edge counts, and the
+shared-memory limits that give its other plans).
 """
 import numpy as np
 
@@ -11,7 +12,8 @@ from .graph.frame import DataFrame
 
 __all__ = ['random_molecule_graph', 'random_molecule_set',
            'random_protein_graph', 'random_protein_set',
-           'protein_niche_set', 'hub_molecule_graph', 'with_dead_edges']
+           'protein_niche_set', 'hub_molecule_graph', 'with_dead_edges',
+           'stream_plan_kind', 'stream_limit_for']
 
 
 def random_molecule_graph(rng, n_atoms, elements=(1, 6, 7, 8, 16)):
@@ -206,3 +208,48 @@ def with_dead_edges(args, case):
     return [Tn.contiguous(), *(e.index_select(1, i).contiguous() for e, i in
                                ((esrc1, i1), (edst1, i1), (esrc2, i2),
                                 (edst2, i2))), *rest]
+
+
+def stream_plan_kind(plan):
+    """The kind of a plan of ``ops.pcg.stream_plan``: ``'shared'`` (whole
+    rows, side 2's list in shared memory), ``'list_in_device'`` (whole
+    rows, the list in device memory), ``'chunked'`` (a row cut into
+    chunks, z, p and the list in shared memory),
+    ``'chunked_list_in_device'`` (chunks, the list in device memory) or
+    ``'chunked_l2'`` (chunks, z, p and the list read from device
+    memory)."""
+    if not plan['chunk_cols']:
+        return 'shared' if plan['list_in_smem'] else 'list_in_device'
+    if not plan['vectors_in_smem']:
+        return 'chunked_l2'
+    return 'chunked' if plan['list_in_smem'] else 'chunked_list_in_device'
+
+
+def stream_limit_for(M1, M2, N1, N2, device, kind, span=None, chunks=3):
+    """The largest shared-memory limit, in bytes and 1 KiB steps below
+    what a block can opt into, under which ``pcg_stream``'s plan for pairs
+    of these shapes on the CUDA ``device`` is of ``kind``
+    (:func:`stream_plan_kind`); for the chunked kinds, with a live span of
+    ``span`` columns (default M2) cut into at least ``chunks`` chunks. Set
+    it as ``pcg_stream.smem_limit`` to run that plan on these pairs."""
+    from .ops import pcg
+    span = M2 if span is None else span
+    old = pcg.pcg_stream.smem_limit
+    try:
+        pcg.pcg_stream.smem_limit = None
+        limit = pcg._stream_smem_limit(device)
+        while limit >= 1024:
+            pcg.pcg_stream.smem_limit = limit
+            try:
+                plan = pcg.stream_plan(M1, M2, N1, N2, device)
+            except ValueError:
+                break
+            if stream_plan_kind(plan) == kind and (
+                    not plan['chunk_cols']
+                    or -(-span // plan['chunk_cols']) >= chunks):
+                return limit
+            limit -= 1024
+    finally:
+        pcg.pcg_stream.smem_limit = old
+    raise ValueError(f'no shared-memory limit gives a {kind!r} plan for '
+                     f'M1={M1}, M2={M2}, N1={N1}, N2={N2}')

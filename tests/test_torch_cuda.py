@@ -34,11 +34,11 @@ from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
     offdiag_operator, pcg_cluster, pcg_cluster_reference, pcg_packed,
     pcg_packed_reference, pcg_resident, pcg_resident_reference, pcg_stream,
     pcg_stream_reference, smallest_cluster, stream_grid, stream_launch_plan,
-    stream_workspace_bytes)
+    stream_plan, stream_workspace_bytes)
 from graphdot_tpu_torch.graph import Graph  # noqa: E402
 from graphdot_tpu_torch.testing import (  # noqa: E402
     hub_molecule_graph, protein_niche_set, random_molecule_set,
-    with_dead_edges)
+    stream_limit_for, stream_plan_kind, with_dead_edges)
 
 pytestmark = pytest.mark.cuda
 
@@ -445,10 +445,10 @@ def test_stream_no_pairs_launches_nothing(card):
     assert pcg_stream.launches == before
 
 
-def _pair_systems(device, graphs1, graphs2, i, j):
+def _pair_systems(device, graphs1, graphs2, i, j, kernel=None):
     """The solver's operands for the pairs (graphs1[i], graphs2[j]) under
-    the molecule kernel, and its maxiter."""
-    kernel = _kernel(device)
+    ``kernel`` (default: the molecule kernel), and its maxiter."""
+    kernel = _kernel(device) if kernel is None else kernel
     _, bd1, _ = kernel._prepare_batch(graphs1)
     _, bd2, _ = kernel._prepare_batch(graphs2)
     s = mlgk_setup(kernel._theta_vector(),
@@ -516,6 +516,96 @@ def test_stream_edge_cases_protein(protein_chunk, case):
     torch.cuda.synchronize()
     _close(x, x_ref[1:2])
     assert torch.equal(x, x2)
+
+
+@pytest.mark.parametrize('kind', ['list_in_device', 'chunked',
+                                  'chunked_list_in_device', 'chunked_l2'])
+@pytest.mark.parametrize('case', ['odd_m2', 'dead_between'])
+def test_stream_forced_plans(protein_chunk, case, kind, monkeypatch):
+    """The lone protein pair with dead edges added, under a shared-memory
+    limit that gives it the plan of larger pairs: side 2's list in device
+    memory, or rows cut into at least 3 chunks with z, p and the list in
+    shared memory, with the list in device memory, or with all three read
+    from device memory. At the default C and at C = 3, against the twin,
+    each run twice and bitwise equal."""
+    args, x_ref = protein_chunk
+    one = with_dead_edges([a[1:2] for a in args[:-1]], case) + [args[-1]]
+    T = one[0]
+    shapes = (*T.shape[1:], *one[5].shape[1:])
+    cols = (T[0] != 0).any(dim=0).nonzero()
+    span = int(cols.max() - cols.min()) + 1
+    limit = stream_limit_for(*shapes, T.device, kind, span=span)
+    monkeypatch.setattr(pcg_stream, 'smem_limit', limit)
+    plan = stream_plan(*shapes, T.device)
+    assert stream_plan_kind(plan) == kind
+    assert plan['list_in_smem'] == (kind == 'chunked')
+    assert plan['smem_bytes'] <= limit
+    if kind != 'list_in_device':
+        assert plan['rows'] == 1
+        assert plan['vectors_in_smem'] == (kind != 'chunked_l2')
+        assert -(-span // plan['chunk_cols']) >= 3
+    for ctas in (None, 3):
+        x, iters = pcg_stream(*one, ctas_per_pair=ctas)
+        x2, iters2 = pcg_stream(*one, ctas_per_pair=ctas)
+        torch.cuda.synchronize()
+        _close(x, x_ref[1:2])
+        assert torch.equal(x, x2) and torch.equal(iters, iters2)
+
+
+@pytest.mark.parametrize('n_res, kind', [(1050, 'list_in_device'),
+                                         (1500, 'chunked')])
+def test_stream_large_protein_pair(card, n_res, kind):
+    """A self pair of one categorical contact map of ``n_res`` residues
+    under the default plan: beyond the whole-row plan with side 2's list in
+    shared memory at 1,050 residues, beyond every whole-row plan at 1,500
+    (rows in chunks, z, p and the list in shared memory). Against the twin,
+    two runs bitwise equal."""
+    kernel = MarginalizedGraphKernel(
+        TensorProduct(element=KroneckerDelta(0.2)),
+        TensorProduct(length=SquareExponential(3.0),
+                      ctype=KroneckerDelta(0.3)),
+        q=0.05, device=card)
+    graphs = protein_niche_set(13, 1, (n_res, n_res + 1))
+    args = _pair_systems(card, graphs, graphs, [0], [0], kernel)
+    T = args[0]
+    plan = stream_plan(*T.shape[1:], *args[5].shape[1:], card)
+    assert stream_plan_kind(plan) == kind
+    x, iters = pcg_stream(*args)
+    x2, iters2 = pcg_stream(*args)
+    x_ref, iters_ref = pcg_stream_reference(*args)
+    torch.cuda.synchronize()
+    _close(x, x_ref)
+    assert torch.equal(x, x2) and torch.equal(iters, iters2)
+    assert int((iters - iters_ref).abs().max()) <= 1
+
+
+def test_stream_wide_list_entries(card):
+    """A pair with M2 > 65536 (a list entry's column takes 17 bits) and N2
+    = 12,000 (z and p read from device memory): the chunked plan of the
+    largest graphs, on random operands with a dominant diagonal, against
+    the twin, two runs bitwise equal."""
+    rng = np.random.default_rng(11)
+    M1, N1, M2, N2 = 24, 10, 70_001, 12_000
+
+    def tensor(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=card)[None]
+
+    T = tensor(rng.uniform(0.0, 0.01, (M1, M2)) * (rng.random((M1, M2)) < 0.5))
+    edges = [tensor(rng.integers(0, n, m), torch.int32)
+             for n, m in ((N1, M1), (N1, M1), (N2, M2), (N2, M2))]
+    diag = tensor(rng.uniform(1.0, 2.0, (N1, N2)))
+    b = tensor(rng.normal(size=(N1, N2)))
+    args = [T, *edges, diag, 1.0 / diag, b,
+            torch.full((1,), 1e-5, device=card), 60]
+    plan = stream_plan(M1, M2, N1, N2, card)
+    assert stream_plan_kind(plan) == 'chunked_l2'
+    x, iters = pcg_stream(*args)
+    x2, iters2 = pcg_stream(*args)
+    x_ref, iters_ref = pcg_stream_reference(*args)
+    torch.cuda.synchronize()
+    _close(x, x_ref)
+    assert torch.equal(x, x2) and torch.equal(iters, iters2)
+    assert int((iters - iters_ref).abs().max()) <= 1
 
 
 def test_stream_launches_differ_in_c(card):

@@ -40,7 +40,7 @@ from graphdot_tpu_torch.ops.pcg import (  # noqa: E402
     pcg_resident, pcg_stream, pcg_stream_reference, stream_ctas_per_pair,
     stream_launch_plan)
 from graphdot_tpu_torch.testing import (  # noqa: E402
-    protein_niche_set, with_dead_edges)
+    protein_niche_set, stream_plan_kind, with_dead_edges)
 
 from test_torch_pcg import _bad_args  # noqa: E402
 
@@ -200,6 +200,37 @@ def test_stream_launch_plan(P, N1, grid, ctas, want):
 def test_stream_launch_plan_rejects(grid, ctas):
     with pytest.raises(ValueError):
         stream_launch_plan(4, 16, grid, ctas)
+
+
+@pytest.mark.parametrize('plan,kind', [
+    ({'chunk_cols': 0, 'list_in_smem': 1}, 'shared'),
+    ({'chunk_cols': 0, 'list_in_smem': 0}, 'list_in_device'),
+    ({'chunk_cols': 6944, 'list_in_smem': 1, 'vectors_in_smem': 1},
+     'chunked'),
+    ({'chunk_cols': 14304, 'list_in_smem': 0, 'vectors_in_smem': 1},
+     'chunked_list_in_device'),
+    ({'chunk_cols': 6816, 'list_in_smem': 0, 'vectors_in_smem': 0},
+     'chunked_l2'),
+])
+def test_stream_plan_kind(plan, kind):
+    assert stream_plan_kind(plan) == kind
+
+
+def test_smem_limit_leaves_the_cpu_path(monkeypatch):
+    """A shared-memory limit only picks the card's plan: on CPU tensors
+    pcg_stream is its twin whatever the limit."""
+    rng = np.random.default_rng(3)
+    P, M1, M2, N1, N2 = 2, 12, 11, 5, 4
+    T = torch.tensor(rng.uniform(0, 0.1, (P, M1, M2)), dtype=torch.float32)
+    edges = [torch.tensor(rng.integers(0, n, (P, m)), dtype=torch.int32)
+             for n, m in ((N1, M1), (N1, M1), (N2, M2), (N2, M2))]
+    diag = torch.tensor(rng.uniform(2, 3, (P, N1, N2)), dtype=torch.float32)
+    b = torch.tensor(rng.normal(size=(P, N1, N2)), dtype=torch.float32)
+    args = [T, *edges, diag, 1 / diag, b, torch.full((P,), 1e-6), 40]
+    want = pcg_stream_reference(*args)
+    monkeypatch.setattr(pcg_stream, 'smem_limit', 4096)
+    got = pcg_stream(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize('P,N1,grid,want', [
