@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .gram import GramFactory
+from ..util.trace import span
 
 
 def _mvn_logdensity(K, y, alpha):
@@ -48,7 +49,7 @@ class _Gram(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, factory, lmin):
-        with torch.profiler.record_function('gp_gram'):
+        with span('gp_gram'):
             if ctx.needs_input_grad[0]:
                 K, dK = factory.gram(t.detach(), lmin=lmin,
                                      eval_gradient=True)
@@ -60,7 +61,7 @@ class _Gram(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gK):
-        with torch.profiler.record_function('gp_gram_backward'):
+        with span('gp_gram_backward'):
             dK, = ctx.saved_tensors
             grad = torch.sum(gK[..., None] * dK, dim=(-3, -2))
         return grad.to(ctx.t_device), None, None
@@ -141,7 +142,7 @@ class GPRLogProb:
         in a ``torch.profiler`` range named ``gp_density``."""
         t = torch.as_tensor(t, dtype=torch.float32)
         K = _Gram.apply(t, self.factory, self.lmin)
-        with torch.profiler.record_function('gp_density'):
+        with span('gp_density'):
             logp = _mvn_logdensity(K, self._y, self.alpha).to(t.device) \
                 + self.prior(t).double()
         return logp.float()

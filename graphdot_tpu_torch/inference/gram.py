@@ -47,6 +47,7 @@ from ..kernel.marginalized._kernel import JobPlan
 from ..kernel.marginalized._solver import (_detached, _plain_solve,
                                            mlgk_setup)
 from ..util.iterable import flatten
+from ..util.trace import spanned
 
 
 class GramFactory:
@@ -187,6 +188,7 @@ class GramFactory:
     def _group_maxiter(self, grp):
         return min(grp['n1'] * grp['n2'], self._maxiter_cap)
 
+    @spanned('gram_factory')
     def gram(self, theta_log_active, lmin=0, with_residual=False,
              eval_gradient=False):
         """The (normalized, when ``normalize``) Gram at log-scale active

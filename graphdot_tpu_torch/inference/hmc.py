@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..util.trace import span
+
 
 class HMCState(NamedTuple):
     q: torch.Tensor         # [C, D] positions
@@ -24,7 +26,7 @@ def value_and_grad(logp_fn, q):
     device and in float32. A row where the density is not finite gets
     whatever autograd gives there; the other rows are not touched by it.
     Runs in a ``torch.profiler`` range named ``value_and_grad``."""
-    with torch.profiler.record_function('value_and_grad'), \
+    with span('value_and_grad'), \
             torch.enable_grad():
         q = q.detach().requires_grad_(True)
         logp = logp_fn(q)

@@ -1,13 +1,15 @@
 """Gram-level kernel modifiers: cosine normalization and exponentiation
 of a whole kernel, with chain-rule gradients at the matrix level.
 
-A copy of ``graphdot_tpu/kernel/fix.py`` (numpy only); it is copied because
-importing :mod:`graphdot_tpu.kernel` loads JAX."""
+A copy of ``graphdot_tpu/kernel/fix.py`` (numpy, and a profiler span around
+:meth:`Normalization.__call__`); it is copied because importing
+:mod:`graphdot_tpu.kernel` loads JAX."""
 import copy
 
 import numpy as np
 
 from ..util.pretty_tuple import pretty_tuple
+from ..util.trace import spanned
 
 
 def _cosine(R, ldiag, rdiag):
@@ -63,6 +65,7 @@ class Normalization(_Wrapper):
         Any kernel with the graph-kernel call signature.
     """
 
+    @spanned('normalization')
     def __call__(self, X, Y=None, eval_gradient=False, **options):
         """Normalized Gram matrix (and its full chain-rule gradient when
         ``eval_gradient``)."""

@@ -30,6 +30,7 @@ import torch
 from ...util import Timer
 from ...util.iterable import fold_like, flatten
 from ...util.pretty_tuple import pretty_tuple
+from ...util.trace import span, spanned
 from ...graph import Graph, batch_graphs
 from ...ops.pcg import edge_segments
 from ._backend import backend_factory, resolve_device
@@ -445,6 +446,7 @@ class MarginalizedGraphKernel:
             ops['edge_elist_feats_2'] = g2(bd2['edge_elist_feats'])
         return ops
 
+    @spanned('mlgk_chunk')
     def _solve_chunk(self, theta, bd1, bd2, idx1, idx2, pf1, pf2, nodal,
                      lmin, eval_gradient=False, maxiter=None,
                      with_residual=False, kron=None, route=None,
@@ -748,17 +750,18 @@ class MarginalizedGraphKernel:
         factory.recalibrate_kron(np.log(th_lin))
         out = factory.gram(np.log(th_lin), lmin=int(lmin),
                            eval_gradient=eval_gradient)
-        if eval_gradient:
-            K, dK = out
-            # the factory's dK is in log theta; the call's is linear
-            return (K.cpu().numpy(),
-                    dK.cpu().numpy() / th_lin[None, None, :])
-        return out.cpu().numpy(), None
+        with span('host_sync'):
+            if eval_gradient:
+                K, dK = (t.cpu().numpy() for t in out)
+                # the factory's dK is in log theta; the call's is linear
+                return K, dK / th_lin[None, None, :]
+            return out.cpu().numpy(), None
 
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
 
+    @spanned('mlgk_call')
     def __call__(self, X, Y=None, eval_gradient=False, nodal=False, lmin=0,
                  timing=False):
         """Compute the pairwise similarity matrix between graphs.
@@ -886,6 +889,7 @@ class MarginalizedGraphKernel:
                 dR[i_jobs, j_jobs - nX] = grad
         return R, dR
 
+    @spanned('mlgk_call')
     def diag(self, X, eval_gradient=False, nodal=False, lmin=0,
              active_theta_only=True, timing=False):
         """Compute the self-similarities of a list of graphs.

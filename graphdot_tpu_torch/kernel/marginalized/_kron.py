@@ -51,6 +51,7 @@ from collections import namedtuple
 import torch
 
 from ...ops.pcg import pcg
+from ...util.trace import spanned
 
 #: Chebyshev nodes a scalar feature, when no calibration chose them
 DEFAULT_RANK = 32
@@ -386,6 +387,7 @@ def kron_tangent_offdiag(A1s, V2, C_d, x):
     return out
 
 
+@spanned('kron_pcg_call')
 def kron_pcg(A1s, B2s, diag, precond, b, tol, maxiter, return_iters=False):
     """Solve the kron systems of a chunk for b [P, k, n1, n2] (k right-hand
     sides a pair, each to its pair's tol [P]) by the batched Jacobi-PCG of

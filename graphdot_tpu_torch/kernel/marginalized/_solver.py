@@ -32,6 +32,7 @@ import torch
 from ...ops.pcg import (cluster_fits, gather_offdiag, largest_packed_k,
                         offdiag_operator, pcg, pcg_cluster, pcg_packed,
                         pcg_resident, pcg_stream, resident_fits)
+from ...util.trace import count, recording, span
 from ._kron import (fold_side_2, kron_factors,
                     kron_grid_kernel, kron_offdiag, kron_pcg,
                     kron_tangent_offdiag)
@@ -183,6 +184,16 @@ def cuda_solver(M1, M2, N1, N2, device, route=None):
         route, pcg_stream)
 
 
+def _count_steps(kind, iters, members=1):
+    """While a profiler records, add a route's step counts ``iters`` (a
+    tensor, one a solve, each solve carrying ``members`` systems) to the
+    counter ``cg_steps.<kind>`` and its systems to ``cg_systems.<kind>``
+    (:mod:`graphdot_tpu_torch.util.trace`)."""
+    if recording():
+        count(f'cg_steps.{kind}', iters, members)
+        count(f'cg_systems.{kind}', iters.numel() * members)
+
+
 def _non_finite_members(rhs):
     """[P, k] bool: the members whose right-hand side holds a NaN or inf."""
     return ~torch.isfinite(rhs).flatten(2).all(dim=2)
@@ -225,6 +236,10 @@ def _packed_tangents(group, T, esrc1, edst1, esrc2, edst2, diag, precond,
                                  precond)),
         rhs.reshape(P * n_groups, group, N1, N2).contiguous(),
         tol.repeat_interleave(n_groups), min(maxiter * group, 16384))
+    if recording():
+        # a group's steps count once for each real member it carries
+        for g, steps in enumerate(iters.view(P, n_groups).unbind(1)):
+            _count_steps('tangent', steps, min(group, k - g * group))
     x = x.reshape(P, n_groups * group, N1, N2)[:, :k]
     return torch.where(bad[:, :, None, None], float('nan'), x), iters
 
@@ -241,6 +256,7 @@ def _stream_tangents(T, esrc1, edst1, esrc2, edst2, diag, precond, rhs, tol,
     x, iters = pcg_stream(
         *(rep(a) for a in (T, esrc1, edst1, esrc2, edst2, diag, precond)),
         rhs.reshape(P * k, N1, N2).contiguous(), rep(tol), maxiter)
+    _count_steps('tangent', iters)
     return x.view(P, k, N1, N2), iters
 
 
@@ -261,6 +277,7 @@ def _cluster_tangents(T, esrc1, edst1, esrc2, edst2, diag, precond, rhs, tol,
     x, iters = pcg_cluster(T, esrc1, edst1, esrc2, edst2, diag, precond,
                            rhs.reshape(P * k, N1, N2).contiguous(),
                            tol.repeat_interleave(k), maxiter, op=op)
+    _count_steps('tangent', iters)
     x = x.view(P, k, N1, N2)
     return torch.where(bad[:, :, None, None], float('nan'), x), iters
 
@@ -401,23 +418,25 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode, kron=None):
         system.update(kron_factors(ops, _apply_on_features, kedge, te, kron))
         return system
 
-    ew1, ew2 = ops['ew_1'], ops['ew_2']
-    raw_eef1 = ops['edge_elist_feats_1']
-    raw_eef2 = ops['edge_elist_feats_2']
-    if not raw_eef1:
-        raw_eef1 = {'_phantom': ew1}
-        raw_eef2 = {'_phantom': ew2}
-    eef1 = _expand_dict(raw_eef1, (2,))  # [P,M1,1(,L)]
-    eef2 = _expand_dict(raw_eef2, (1,))  # [P,1,M2(,L)]
-    ke = _apply_on_features(kedge, te, eef1, eef2)
-    # zero at the padded edges (weight 0) by a mask, not by the weight
-    # alone: at a tiny length scale the edge kernel's derivative overflows
-    # against a padded edge's features where it does not between real
-    # edges, and 0 * inf would make T_d NaN there (the JAX package
-    # multiplies by the weights, and its gradients are NaN at such theta)
-    w1, w2 = ew1[:, :, None], ew2[:, None, :]
-    T = torch.where((w1 != 0) & (w2 != 0), ke * w1 * w2, 0.0)
-    system['T'] = T.expand(P, ew1.shape[1], ew2.shape[1]).contiguous()
+    with span('mlgk_setup_edge'):
+        ew1, ew2 = ops['ew_1'], ops['ew_2']
+        raw_eef1 = ops['edge_elist_feats_1']
+        raw_eef2 = ops['edge_elist_feats_2']
+        if not raw_eef1:
+            raw_eef1 = {'_phantom': ew1}
+            raw_eef2 = {'_phantom': ew2}
+        eef1 = _expand_dict(raw_eef1, (2,))  # [P,M1,1(,L)]
+        eef2 = _expand_dict(raw_eef2, (1,))  # [P,1,M2(,L)]
+        ke = _apply_on_features(kedge, te, eef1, eef2)
+        # zero at the padded edges (weight 0) by a mask, not by the weight
+        # alone: at a tiny length scale the edge kernel's derivative
+        # overflows against a padded edge's features where it does not
+        # between real edges, and 0 * inf would make T_d NaN there (the
+        # JAX package multiplies by the weights, and its gradients are NaN
+        # at such theta)
+        w1, w2 = ew1[:, :, None], ew2[:, None, :]
+        T = torch.where((w1 != 0) & (w2 != 0), ke * w1 * w2, 0.0)
+        system['T'] = T.expand(P, ew1.shape[1], ew2.shape[1]).contiguous()
     for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'edge_lists_1',
               'edge_lists_2'):
         system[f] = ops[f]
@@ -510,7 +529,9 @@ def _detached(system):
 def _value_solver(system, mode, maxiter, route=None):
     """``solve(b [P, n1, n2]) -> x`` with the system's operator at its
     value tol, in the mode's route (:func:`cuda_solver` of ``route`` for
-    ``'cuda'``)."""
+    ``'cuda'``). Each solve's steps go to the counters ``cg_steps.value``
+    and ``cg_systems.value`` (:func:`_count_steps`), the adjoint solves of a
+    backward pass too."""
     s = _detached(system)
     diag, precond, tol = (s[f].contiguous()
                           for f in ('diag', 'precond', 'tol'))
@@ -521,13 +542,18 @@ def _value_solver(system, mode, maxiter, route=None):
                              route)
 
         def solve(b):
-            return solver(T, s['esrc_1'], s['edst_1'], s['esrc_2'],
-                          s['edst_2'], diag, precond, b.contiguous(), tol,
-                          maxiter)[0]
+            x, iters = solver(T, s['esrc_1'], s['edst_1'], s['esrc_2'],
+                              s['edst_2'], diag, precond, b.contiguous(),
+                              tol, maxiter)
+            _count_steps('value', iters)
+            return x
         return solve
 
     def solve(b):
-        return _plain_solve(s, mode, b.unsqueeze(1), tol, maxiter)[:, 0]
+        x, iters = _plain_solve(s, mode, b.unsqueeze(1), tol, maxiter,
+                                return_iters=True)
+        _count_steps('value', iters)
+        return x[:, 0]
     return solve
 
 
@@ -644,29 +670,34 @@ def mlgk_tangents(theta, ops, system, x, *, knode, kedge, n_p_theta, mode,
         return s['diag'], s['b'], coupling, s['Vx']
 
     jacobian = torch.func.jacfwd(elementwise)
-    if theta.dim() == 2:
-        # one vectorized jacobian for all C thetas, the systems theta-major
-        diag_d, b_d, C_d, Vx_d = (
-            d.flatten(0, 1)
-            for d in torch.func.vmap(jacobian)(theta.detach()))
-    else:
-        diag_d, b_d, C_d, Vx_d = jacobian(theta.detach())
-    diag_d, b_d, Vx_d = (torch.movedim(t, -1, 1) for t in (diag_d, b_d, Vx_d))
-    P, k, n1, n2 = diag_d.shape
-    xk = x.detach().unsqueeze(1).expand(P, k, n1, n2)
-    if mode == 'kron':
-        off = kron_tangent_offdiag(system['A1s'].detach(),
-                                   system['V2'].detach(),
-                                   torch.movedim(C_d, -1, 0), x.detach())
-    elif mode == 'dense':
-        off = torch.einsum('cijkld,cjl->cdik', C_d, x.detach())
-    else:
-        C_d = torch.movedim(C_d, -1, 1)
-        *edges, segments = _edges(system, k)
-        off = gather_offdiag(
-            C_d.reshape(P * k, *C_d.shape[2:]), *edges,
-            xk.reshape(P * k, n1, n2), segments).view(P, k, n1, n2)
-    return {'rhs': b_d - diag_d * xk + off, 'Vx': Vx_d}
+    with span('mlgk_tangents_jac'):
+        if theta.dim() == 2:
+            # one vectorized jacobian for all C thetas, the systems
+            # theta-major
+            diag_d, b_d, C_d, Vx_d = (
+                d.flatten(0, 1)
+                for d in torch.func.vmap(jacobian)(theta.detach()))
+        else:
+            diag_d, b_d, C_d, Vx_d = jacobian(theta.detach())
+    with span('mlgk_tangents_rhs'):
+        diag_d, b_d, Vx_d = (torch.movedim(t, -1, 1)
+                             for t in (diag_d, b_d, Vx_d))
+        P, k, n1, n2 = diag_d.shape
+        xk = x.detach().unsqueeze(1).expand(P, k, n1, n2)
+        if mode == 'kron':
+            off = kron_tangent_offdiag(system['A1s'].detach(),
+                                       system['V2'].detach(),
+                                       torch.movedim(C_d, -1, 0), x.detach())
+        elif mode == 'dense':
+            off = torch.einsum('cijkld,cjl->cdik', C_d, x.detach())
+        else:
+            C_d = torch.movedim(C_d, -1, 1)
+            *edges, segments = _edges(system, k)
+            off = gather_offdiag(
+                C_d.reshape(P * k, *C_d.shape[2:]), *edges,
+                xk.reshape(P * k, n1, n2), segments).view(P, k, n1, n2)
+        rhs = b_d - diag_d * xk + off
+    return {'rhs': rhs, 'Vx': Vx_d}
 
 
 def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
@@ -688,8 +719,15 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     n_theta tangent systems of every pair run at ``ops['gtol']``: in
     :func:`cuda_tangent_solver`'s route for mode ``'cuda'``, side by side
     through the pair's factors for kron, in the plain PCG for the others.
-    The four phases run in ``torch.profiler`` ranges named ``mlgk_setup``,
-    ``mlgk_value_solve``, ``mlgk_tangents`` and ``mlgk_tangent_solve``.
+    While a ``torch.profiler`` records, the four phases run in spans
+    (:mod:`graphdot_tpu_torch.util.trace`) named ``mlgk_setup`` (around
+    ``mlgk_setup_edge``: the edge kernel and T), ``mlgk_value_solve`` (around
+    the PCG wrapper's ``pcg_*_call`` span), ``mlgk_tangents`` (around
+    ``mlgk_tangents_jac``, the jacobian of the setup, and
+    ``mlgk_tangents_rhs``, the right-hand sides) and
+    ``mlgk_tangent_solve``; the CG steps of the value and tangent systems
+    go to the counters ``cg_steps.value``, ``cg_systems.value``,
+    ``cg_steps.tangent`` and ``cg_systems.tangent``.
 
     ``return_resnorm`` adds each pair's relative residual ``||b - A x|| /
     ||b||`` of the value solve, by one plain matvec on x (converged float32
@@ -721,13 +759,12 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
             mode, ops['esrc_1'].shape[1], ops['esrc_2'].shape[1],
             ops['node_mask_1'].shape[1], ops['node_mask_2'].shape[1],
             ops['ew_1'].device)
-    record = torch.profiler.record_function
-    with record('mlgk_setup'):
+    with span('mlgk_setup'):
         setup = _setup_over_thetas if batched else mlgk_setup
         s = setup(theta, ops, knode=knode, kedge=kedge,
                   n_p_theta=n_p_theta, mode=mode, kron=kron)
     Vx, valid = s['Vx'], s['valid']
-    with record('mlgk_value_solve'):
+    with span('mlgk_value_solve'):
         x = solve_linear(s, mode, maxiter, route)
     resnorm = None
     if return_resnorm:
@@ -741,12 +778,12 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
 
     x_dot = None
     if tangents:
-        with record('mlgk_tangents'):
+        with span('mlgk_tangents'):
             t = mlgk_tangents(theta, ops, s, x, knode=knode, kedge=kedge,
                               n_p_theta=n_p_theta, mode=mode, kron=kron)
         rhs = t['rhs']
         sd = _detached(s)
-        with record('mlgk_tangent_solve'):
+        with span('mlgk_tangent_solve'):
             if mode == 'cuda':
                 T = sd['T']
                 P, k, n1, n2 = rhs.shape
@@ -758,7 +795,9 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
                     sd['precond'].contiguous(), rhs.contiguous(),
                     sd['gtol'].contiguous(), maxiter)
             else:
-                x_dot = _plain_solve(sd, mode, rhs, sd['gtol'], maxiter)
+                x_dot, iters = _plain_solve(sd, mode, rhs, sd['gtol'],
+                                            maxiter, return_iters=True)
+                _count_steps('tangent', iters)
         if lmin == 1:
             x_dot = x_dot - torch.where(valid[:, None] > 0, t['Vx'], 0.0)
         x_dot = torch.movedim(x_dot, 1, -1)

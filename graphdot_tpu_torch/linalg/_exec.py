@@ -13,11 +13,13 @@ import numpy as np
 import torch
 
 from ..kernel.marginalized._backend import resolve_device
+from ..util.trace import span
 
 
 def _to_numpy(out):
     if isinstance(out, torch.Tensor):
-        return out.detach().cpu().numpy()
+        with span('host_sync'):
+            return out.detach().cpu().numpy()
     if isinstance(out, (tuple, list)):
         return type(out)(_to_numpy(o) for o in out)
     return out

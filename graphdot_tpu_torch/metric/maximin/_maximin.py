@@ -33,6 +33,7 @@ import torch
 from ...kernel.marginalized import MarginalizedGraphKernel
 from ...kernel.marginalized._kernel import JobPlan
 from ...util import Timer
+from ...util.trace import span
 
 
 def _induced_distance(k12, k1, k2):
@@ -305,7 +306,7 @@ class MaxiMin(MarginalizedGraphKernel):
             parts = []
             s = 0
             for R, _ in plan.solve(theta, grp, True, lmin):
-                with torch.profiler.record_function('maximin_reduce'):
+                with span('maximin_reduce'):
                     parts.append(self._reduce_chunk(
                         R, slice(s, s + R.shape[0]), k_self, dk_self,
                         sizes_t, gi, gj, first, second, sw))

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ...linalg._exec import run
+from ...util.trace import span
 
 # ---------------------------------------------------------------------
 # inverses
@@ -38,7 +39,10 @@ def _eigh(H):
     triangle); NaN for a matrix with NaN or Inf entries, which
     ``torch.linalg.eigh`` refuses with an error."""
     H = 0.5 * (H + H.T)
-    if not bool(torch.isfinite(H).all()):
+    finite = torch.isfinite(H).all()
+    with span('host_sync'):
+        finite = bool(finite)
+    if not finite:
         nan = torch.full_like(H, torch.nan)
         return nan[0], nan
     return torch.linalg.eigh(H)
@@ -98,7 +102,12 @@ def _evaluate(fn, mats, y, rcond, with_grad, device):
                     for i, a in enumerate(args)]
             with torch.enable_grad():
                 v = fn(*args, method=method)
-            if not with_grad or not torch.isfinite(v):
+            if not with_grad:
+                return v
+            finite = torch.isfinite(v)
+            with span('host_sync'):
+                finite = bool(finite)
+            if not finite:
                 return v
             return v, torch.autograd.grad(v, args[:n_mats])
         return objective

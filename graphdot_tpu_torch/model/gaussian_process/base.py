@@ -22,6 +22,7 @@ import numpy as np
 from scipy.optimize import minimize
 
 from ...util.printer import markdown as mprint
+from ...util.trace import span
 
 
 def valid_targets(values):
@@ -121,9 +122,11 @@ class GaussianProcessRegressorBase:
 
         def engine(theta_log, jac):
             out = factory.gram(theta_log, eval_gradient=jac)
-            if not jac:
-                return out.double().cpu().numpy()
-            K, dK = (t.double().cpu().numpy() for t in out)
+            out = [t.double() for t in out] if jac else out.double()
+            with span('host_sync'):
+                if not jac:
+                    return out.cpu().numpy()
+                K, dK = (t.cpu().numpy() for t in out)
             # the factory's jacobian is in log theta; chain_to_theta
             # expects the linear-scale one
             return K, dK / np.exp(theta_log)[None, None, :]

@@ -13,6 +13,7 @@ import time
 import numpy as np
 
 from ...util.printer import markdown as mprint
+from ...util.trace import spanned
 from . import _objectives as obj
 from .base import GaussianProcessRegressorBase
 
@@ -176,6 +177,7 @@ class GaussianProcessRegressor(GaussianProcessRegressorBase):
             dK = None
         return theta, y, K, dK, time.perf_counter() - started
 
+    @spanned('gp_objective')
     def log_marginal_likelihood(self, theta=None, X=None, y=None,
                                 eval_gradient=False, clone_kernel=True,
                                 verbose=False):
@@ -204,6 +206,7 @@ class GaussianProcessRegressor(GaussianProcessRegressorBase):
             )
         return (float(value), grad) if eval_gradient else float(value)
 
+    @spanned('gp_objective')
     def squared_loocv_error(self, theta=None, X=None, y=None,
                             eval_gradient=False, clone_kernel=True,
                             verbose=False):

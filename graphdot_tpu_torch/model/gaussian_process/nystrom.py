@@ -19,6 +19,7 @@ import numpy as np
 from ...linalg import low_rank as lr
 from ...linalg.spectral import powerh
 from ...util.printer import markdown as mprint
+from ...util.trace import spanned
 from . import _objectives as obj
 from .base import GaussianProcessRegressorBase
 
@@ -184,6 +185,7 @@ class LowRankApproximateGPR(GaussianProcessRegressorBase):
 
     # -- objective ----------------------------------------------------------
 
+    @spanned('gp_objective')
     def log_marginal_likelihood(self, theta=None, C=None, X=None, y=None,
                                 eval_gradient=False, clone_kernel=True,
                                 verbose=False):

@@ -55,6 +55,7 @@ import functools
 
 import torch
 
+from ..util.trace import span, spanned
 from . import _build
 
 #: the largest group :func:`pcg_packed` solves in one CTA
@@ -261,7 +262,9 @@ def _validate(operands, device, maxiter, index_lists):
     bad = torch.zeros((), dtype=torch.bool, device=device)
     for e, n in index_lists:
         bad = bad | ((e < 0) | (e >= n)).any()
-    if bool(bad):
+    with span('host_sync'):
+        bad = bool(bad)
+    if bad:
         raise ValueError('edge indices out of range of the node counts')
 
 
@@ -635,6 +638,7 @@ def kernel_occupancy(name, M1, M2, N1, N2, k=1, ka=1):
                      'smem_bytes'), out))
 
 
+@spanned('pcg_resident_call')
 def pcg_resident(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
                  maxiter):
     """Solve a batch of product-graph systems with the resident CUDA PCG.
@@ -798,6 +802,7 @@ def stream_workspace_bytes(P, M1, M2, N1, N2, device):
         _stream_smem_limit(device))
 
 
+@spanned('pcg_stream_call')
 def pcg_stream(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
                maxiter, ctas_per_pair=None):
     """Solve a batch of product-graph systems with the streaming CUDA PCG.
@@ -942,6 +947,7 @@ def cluster_fits(M1, M2, N1, N2, device):
         cluster_occupancy(K, M1, M2, N1, N2, device)['active_clusters'] > 0
 
 
+@spanned('pcg_cluster_call')
 def pcg_cluster(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
                 maxiter, op=None, cluster_size=None):
     """Solve product-graph systems with the cluster CUDA PCG: one system a
@@ -1032,6 +1038,7 @@ pcg_cluster.launches = 0
 pcg_cluster.last_cluster_size = None
 
 
+@spanned('pcg_packed_call')
 def pcg_packed(T, esrc1, edst1, esrc2, edst2, diag, precond, b, tol,
                maxiter):
     """Solve groups of product-graph systems with the packed CUDA PCG: one
