@@ -356,6 +356,21 @@ and checks every part of them:
     within 1e-6 of ``edge``; the 150-300 class of phase 16 by kron, the
     value Gram twice and the gradient Gram twice, and whether each pair of
     runs is bitwise equal (printed, not checked).
+25. T's build in one pass, ``csrc/setup_edge.cu`` as generated from the
+    edge microkernel, on the chunks of the benchmark's QM7 Gram (1024
+    molecules of ``h100_bench``'s configuration, its kernel and theta):
+    T within 1e-6 max|T| of the plain operations and 0 at every padded
+    edge on the first chunk of each group, then the (24, 24) chunk's
+    wrapper and device time in turns with the plain operations', beside
+    T's padded bytes over 3.35 TB/s and the plain operations under
+    ``torch.compile`` (their first call's wall, time and device time); T's
+    padded bytes of a whole Gram; the whole Gram at the configuration's
+    theta, one launch a chunk, K within 1e-6 of the plain path's. In every
+    phase, each variant of the generated kernel that ``mlgk_setup``
+    launches is held to the plain operations at each new pair of widths
+    (finite, 0 at every padded edge, within 1e-6 max|T|), every generated
+    library is such a variant, and the launches of each phase are counted
+    from 0 (``launches_by_path`` of the kernel's summary row).
 
 Prints each phase's wall as the next begins, and all of them with the
 script's wall so far as one JSON line (``phase_walls_s``, ``script_s``);
@@ -476,6 +491,7 @@ TPU_PACK_KERNEL = 'graphdot_tpu/ops/pallas_pcg.py:310'     # _pcg_pack_kernel
 TPU_PROTO_KERNEL = 'scripts/proto_pallas.py:89'            # pallas_solve
 PROTO_PAIRS, PROTO_STEPS = 2080, 16   # scripts/proto_pallas.py's P, ITERS
 GRAD_REPEATS = 5      # timed gradient Gram builds, in turns with value ones
+SETUP_EDGE_SEED = 2147483659   # the benchmark's molecules of phase 25
 #: NVIDIA H100 SXM peaks from its datasheet: HBM3 bytes/s and float32
 #: operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -486,8 +502,14 @@ CG_OPS_PER_ELEMENT = 15
 
 
 #: the phase under way (its number, from its '== n.' header) and when it
-#: began; each phase's wall is printed when the next one begins
-_PHASE = {'name': None, 'start': time.perf_counter(), 'walls': {}}
+#: began; each phase's wall is printed when the next one begins, and the
+#: launches of ``csrc/setup_edge.cu`` in it are kept (``setup_edge``)
+_PHASE = {'name': None, 'start': time.perf_counter(), 'walls': {},
+          'setup_edge': {}}
+#: every variant of the generated ``csrc/setup_edge.cu`` that a phase
+#: launched through ``mlgk_setup``: {its C expression: {(M1, M2): T's
+#: largest error against the plain operations over max|T|}}
+SETUP_EDGE_CHECKS = {}
 
 
 def _end_phase():
@@ -495,6 +517,12 @@ def _end_phase():
         wall = time.perf_counter() - _PHASE['start']
         _PHASE['walls'][_PHASE['name']] = round(wall, 3)
         print(f'  phase {_PHASE["name"]} took {wall:.3f} s', flush=True)
+    se = sys.modules.get('graphdot_tpu_torch.ops.setup_edge')
+    if se is not None:
+        if _PHASE['name'] is not None:
+            _PHASE['setup_edge'][f'phase {_PHASE["name"]}'] = \
+                se.setup_edge.launches
+        se.setup_edge.launches = 0
 
 
 def say(*args):
@@ -2985,6 +3013,221 @@ def fields_phase():
     return launches
 
 
+def compiled_plain_T(plain_T, reps, bound_ms):
+    """The plain operations of T compiled by ``torch.compile`` on the timed
+    chunk, the yardstick of a fused pass that needs no code of its own:
+    its first call's wall (the compile), its time by CUDA events (as the
+    kernel's ``ms``), that time's share of 3.35 TB/s and its largest error
+    against the plain T. An error while compiling is reported, not
+    raised."""
+    import torch
+    try:
+        fn = torch.compile(plain_T, dynamic=False)
+        t0 = time.perf_counter()
+        T = fn()
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        plain = plain_T()
+        err = float((T - plain).abs().max() / plain.abs().max())
+        del T, plain
+        ms = float(np.mean([cuda_ms(fn, reps) for _ in range(2)]))
+    except Exception as exc:        # noqa: BLE001: a yardstick, not a check
+        say(f'  torch.compile of the plain operations failed: {exc!r}'[:400])
+        return {'error': repr(exc)[:300]}
+    share = bound_ms / ms
+    say(f'  the plain operations under torch.compile: first call '
+        f'{compile_s:.3f} s, {ms:.4f} ms, {100 * share:.2f}% of 3.35 TB/s, '
+        f'{err:.3e} max|T| from the plain T')
+    return {'compile_s': compile_s, 'ms': ms, 'bandwidth_share': share,
+            'max_rel_err': err}
+
+
+def install_setup_edge_checks():
+    """Hold T of every variant of the generated ``csrc/setup_edge.cu`` that
+    any phase builds through ``mlgk_setup``, at each new pair of widths
+    (M1, M2), against the plain operations (``plain_edge_coupling``):
+    finite, exactly 0 at every padded edge and within 1e-6 max|T|. Wraps
+    the two names of ``_solver`` that ``mlgk_setup`` calls; the errors go
+    to ``SETUP_EDGE_CHECKS``."""
+    import torch
+    from graphdot_tpu_torch.kernel.marginalized import _solver
+    engage, launch = _solver.fused_edge_setup, _solver.setup_edge
+    last = {}
+
+    def fused_edge_setup(mode, theta, kedge, feats1, feats2, weights):
+        last['call'] = (kedge, feats1, feats2)
+        return engage(mode, theta, kedge, feats1, feats2, weights)
+
+    def setup_edge(lowered, te, cols1, cols2, w1, w2):
+        T = launch(lowered, te, cols1, cols2, w1, w2)
+        widths = (int(w1.shape[1]), int(w2.shape[1]))
+        seen = SETUP_EDGE_CHECKS.setdefault(lowered.expr, {})
+        if widths in seen:
+            return T
+        kedge, f1, f2 = last['call']
+        plain = _solver.plain_edge_coupling(kedge, te, f1, f2, w1, w2)
+        dead = (w1 == 0)[:, :, None] | (w2 == 0)[:, None, :]
+        scale = float(plain.abs().max())
+        err = float((T - plain).abs().max())
+        seen[widths] = err / scale if scale else err
+        variant = list(SETUP_EDGE_CHECKS).index(lowered.expr)
+        check(T.shape == plain.shape and T.is_contiguous()
+              and bool(torch.isfinite(T).all())
+              and bool((T[dead.expand(T.shape)] == 0).all())
+              and err <= 1e-6 * scale,
+              f'phase {_PHASE["name"]}: setup_edge variant {variant} '
+              f'({len(lowered.columns)} columns, {lowered.n_theta} theta), '
+              f'{T.shape[0]} pairs, M = {widths[0]} x {widths[1]}: T within '
+              f'{err:.3e} of the plain operations (max|T| {scale:.3e}), 0 at '
+              'every padded edge')
+        return T
+
+    _solver.fused_edge_setup = fused_edge_setup
+    _solver.setup_edge = setup_edge
+
+
+def setup_edge_phase():
+    """Phase 25: T's build in one pass (``csrc/setup_edge.cu``, generated
+    from the edge microkernel) on the chunks of the benchmark's QM7 Gram
+    (``h100_bench``'s ``qm7-tang2019`` configuration, 1024 molecules of the
+    seed ``SETUP_EDGE_SEED``, its kernel at its theta): on the first chunk
+    of every size-class group, T against the plain operations' T (within
+    1e-6 max|T|, exactly 0 at every padded edge); on the (24, 24) chunk,
+    the kernel's wrapper and device time in turns with the plain
+    operations' (``plain_edge_coupling``), beside its bound: T's padded
+    bytes over 3.35 TB/s (it reads M1 + M2 values a column and writes
+    P M1 M2 floats), and beside the plain operations compiled by
+    ``torch.compile`` (one fused elementwise pass from the same code: its
+    first call's wall, its time and its Triton kernels' device time). Also
+    T's padded bytes of a whole Gram and their floor, and the whole Gram
+    at the configuration's theta: one launch a chunk, K within 1e-6 of the
+    plain path's. Returns the kernel's row of the summary line (the
+    launches of that Gram; the script fills in those of every phase and
+    the variants that ``install_setup_edge_checks`` held)."""
+    import torch
+    from h100_bench import cells, harness
+    from graphdot_tpu_torch.inference import GramFactory
+    from graphdot_tpu_torch.kernel.marginalized import _solver
+    from graphdot_tpu_torch.ops import _build
+    from graphdot_tpu_torch.ops import setup_edge as se
+
+    config = harness.config_of(harness.load_manifest(), 'qm7-tang2019')
+    graphs, _ = cells.make_graphs(config, 1024, SETUP_EDGE_SEED, 'cuda')
+    kernel = cells.port_kernel(config, 'cuda')
+    fac = GramFactory(kernel, cells.port_graphs(graphs))
+    theta = fac.full_theta(fac.theta0)
+    q, tn, te = _solver._split_theta(theta, kernel.node_kernel,
+                                     kernel.edge_kernel, 1)
+    plan = fac._plan
+    gram_bytes = sum(4 * len(idx1) * grp['bd1']['esrc'].shape[1]
+                     * grp['bd2']['esrc'].shape[1]
+                     for grp in plan.groups
+                     for _, idx1, _ in plan.chunks(grp))
+    say(f'  a Gram of {len(graphs)} molecules: T holds {gram_bytes:.4e} '
+        f'padded bytes, {gram_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at '
+        '3.35 TB/s')
+
+    def operands(grp):
+        _, idx1, idx2 = next(iter(plan.chunks(grp)))
+        ops = kernel._operands(grp['bd1'], grp['bd2'], idx1, idx2)
+        f1, f2 = ops['edge_elist_feats_1'], ops['edge_elist_feats_2']
+        fused = _solver.fused_edge_setup('cuda', theta, kernel.edge_kernel,
+                                         f1, f2, ops['ew_1'])
+        check(fused is not None, f'group ({grp["n1"]}, {grp["n2"]}): the '
+              'edge kernel lowers and the pass engages')
+        lowered, c1, c2 = fused
+
+        def kernel_T():
+            return se.setup_edge(lowered, te, c1, c2, ops['ew_1'],
+                                 ops['ew_2'])
+
+        def plain_T():
+            return _solver.plain_edge_coupling(
+                kernel.edge_kernel, te, f1, f2, ops['ew_1'], ops['ew_2'])
+        return ops, kernel_T, plain_T
+
+    timed = None
+    errs = {}
+    for grp in plan.groups:
+        ops, kernel_T, plain_T = operands(grp)
+        T, plain = kernel_T(), plain_T()
+        torch.cuda.synchronize()
+        dead = (ops['ew_1'] == 0)[:, :, None] | (ops['ew_2'] == 0)[:, None, :]
+        err = float((T - plain).abs().max() / plain.abs().max())
+        name = f'({grp["n1"]}, {grp["n2"]})'
+        errs[name] = err
+        check(T.shape == plain.shape and T.is_contiguous()
+              and bool(torch.isfinite(T).all())
+              and bool((T[dead.expand(T.shape)] == 0).all()) and err <= 1e-6,
+              f'group {name}, {T.shape[0]} pairs, M = {T.shape[1]} x '
+              f'{T.shape[2]}: T within {err:.3e} max|T| of the plain '
+              'operations, 0 at every padded edge')
+        if grp['n1'] == grp['n2'] == max(g['n1'] for g in plan.groups):
+            timed = (grp, ops, kernel_T, plain_T)
+        del T, plain
+    grp, ops, kernel_T, plain_T = timed
+    for key, (_, info) in _build._LOADED.items():
+        if key.startswith('setup_edge-'):
+            regs = [line.split(':', 1)[-1].strip()
+                    for line in info['log'].splitlines()
+                    if 'Used' in line or 'stack frame' in line]
+            say(f'  {key}: nvcc {info["seconds"]:.2f} s; {regs}')
+    P, M1, M2 = (int(v) for v in ops['ew_1'].shape + ops['ew_2'].shape[1:])
+    t_bytes = 4 * P * M1 * M2
+    bound_ms = t_bytes / HBM_BYTES_PER_S * 1e3
+    reps = 10
+    runs = []
+    for _ in range(2):
+        runs.append(('kernel', time_call(kernel_T, reps, 'setup_edge_kernel')))
+        runs.append(('plain', {'ms': cuda_ms(plain_T, reps)}))
+    k_ms = float(np.mean([r['ms'] for n, r in runs if n == 'kernel']))
+    k_dev = [r['device_ms'] for n, r in runs
+             if n == 'kernel' and r['device_ms'] is not None]
+    k_dev = float(np.mean(k_dev)) if k_dev else None
+    plain_ms = float(np.mean([r['ms'] for n, r in runs if n == 'plain']))
+    share = bound_ms / (k_dev if k_dev else k_ms)
+    say(f'  the ({grp["n1"]}, {grp["n2"]}) chunk, {P} pairs, M = {M1} x {M2}'
+        f' ({t_bytes:.4e} bytes of T): kernel {k_ms:.4f} ms (device '
+        f'{k_dev}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms, '
+        f'{100 * share:.2f}% of 3.35 TB/s')
+    compiled = compiled_plain_T(plain_T, reps, bound_ms)
+    group = f'({grp["n1"]}, {grp["n2"]})'
+    del timed, grp, ops, kernel_T, plain_T
+    torch.cuda.empty_cache()
+
+    n_chunks = sum(1 for g in plan.groups for _ in plan.chunks(g))
+    se.setup_edge.launches = 0
+    K = fac.gram(fac.theta0)
+    torch.cuda.synchronize()
+    gram_launches = se.setup_edge.launches
+    on_card = _solver._on_card
+    _solver._on_card = lambda t: False
+    try:
+        K_plain = fac.gram(fac.theta0)
+    finally:
+        _solver._on_card = on_card
+    gram_err = float((K - K_plain).abs().max())
+    check(gram_launches == n_chunks and gram_err <= 1e-6,
+          f'the normalized Gram of the {len(graphs)} molecules at the '
+          f'configuration\'s theta: setup_edge launched {gram_launches} '
+          f'times = {n_chunks} chunks; K within {gram_err:.3e} <= 1e-6 of '
+          'the plain path\'s')
+    del K, K_plain
+    return {'name': 'setup_edge', 'route': 'cuda',
+            'source': 'graphdot_tpu_torch/csrc/setup_edge.cu',
+            'replaces': None, 'launches': gram_launches,
+            'gram_max_abs_err': gram_err,
+            'max_rel_err': errs, 'ms': k_ms, 'device_ms': k_dev,
+            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': 'bytes',
+            'bandwidth_share': share, 'library_ms': None,
+            'compiled_plain': compiled,
+            'timed_chunk': {'group': group,
+                            'pairs': P, 'M1': M1, 'M2': M2,
+                            'T_bytes': t_bytes},
+            'gram_T_bytes': gram_bytes,
+            'gram_T_floor_ms': gram_bytes / HBM_BYTES_PER_S * 1e3}
+
+
 def parallel_phase(resume):
     """Phase 22: the multi-GPU layer (``graphdot_tpu_torch.parallel``, the
     samplers' ``mesh``) over NCCL at world size 1, the card's one rank, in
@@ -3151,6 +3394,7 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    install_setup_edge_checks()
 
     from graphdot_tpu_torch.convert import hyperparameters_from_numpy
     from graphdot_tpu_torch.kernel import (
@@ -4139,6 +4383,10 @@ def main():
         'CG, chains and particles')
     parallel_launches = parallel_phase(nuts_resume)
 
+    say('== 25. T in one pass: csrc/setup_edge.cu on the benchmark\'s QM7 '
+        'Gram chunks')
+    setup_edge_row = setup_edge_phase()
+
     def by_path(name):
         """A kernel's launches on each path, counted from 0 before it."""
         return {'value Gram (4)': launches if name == 'pcg_resident' else 0,
@@ -4186,6 +4434,15 @@ def main():
         return out
 
     _end_phase()
+    libraries = [k for k in _build._LOADED if k.startswith('setup_edge-')]
+    check(len(libraries) == len(SETUP_EDGE_CHECKS),
+          f'every generated setup_edge library ({len(libraries)}) is a '
+          f'variant held to the plain operations ({len(SETUP_EDGE_CHECKS)})')
+    setup_edge_row['launches_by_path'] = _PHASE['setup_edge']
+    setup_edge_row['variants'] = [
+        {'expr': expr, 'max_rel_err': {f'{m1}x{m2}': e
+                                       for (m1, m2), e in seen.items()}}
+        for expr, seen in SETUP_EDGE_CHECKS.items()]
     say(json.dumps({'phase_walls_s': _PHASE['walls'],
                     'script_s': round(time.perf_counter() - T_START, 3)}))
     say(json.dumps(kron_min_n))
@@ -4243,7 +4500,7 @@ def main():
         'timed_chunk': cluster_main['chunk'],
         'chunks': cluster_times, 'checks': cluster_checks,
         'launches_by_path': by_path('pcg_cluster'),
-    }]}))
+    }, setup_edge_row]}))
     say(nvidia_smi())
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -32,6 +32,7 @@ import torch
 from ...ops.pcg import (cluster_fits, gather_offdiag, largest_packed_k,
                         offdiag_operator, pcg, pcg_cluster, pcg_packed,
                         pcg_resident, pcg_stream, resident_fits)
+from ...ops.setup_edge import columns_of, lower, setup_edge
 from ...util.trace import count, recording, span
 from ._kron import (fold_side_2, kron_factors,
                     kron_grid_kernel, kron_offdiag, kron_pcg,
@@ -332,6 +333,55 @@ def _split_theta(theta, knode, kedge, n_p_theta):
     return q, tn, te
 
 
+def plain_edge_coupling(kedge, te, feats1, feats2, ew1, ew2):
+    """T [P, M1, M2] = w1 w2 k_edge by plain torch operations, from the
+    edge kernel's hyperparameters ``te``, the feature dicts of each side
+    ([P, M] columns) and the edge weights ew1 [P, M1], ew2 [P, M2]."""
+    eef1 = _expand_dict(feats1, (2,))  # [P,M1,1(,L)]
+    eef2 = _expand_dict(feats2, (1,))  # [P,1,M2(,L)]
+    ke = _apply_on_features(kedge, te, eef1, eef2)
+    # zero at the padded edges (weight 0) by a mask, not by the weight
+    # alone: at a tiny length scale the edge kernel's derivative overflows
+    # against a padded edge's features where it does not between real
+    # edges, and 0 * inf would make T_d NaN there (the JAX package
+    # multiplies by the weights, and its gradients are NaN at such theta)
+    w1, w2 = ew1[:, :, None], ew2[:, None, :]
+    T = torch.where((w1 != 0) & (w2 != 0), ke * w1 * w2, 0.0)
+    return T.expand(ew1.shape[0], ew1.shape[1], ew2.shape[1]).contiguous()
+
+
+def _on_card(t):
+    return t.device.type == 'cuda'
+
+
+def fused_edge_setup(mode, theta, kedge, feats1, feats2, weights):
+    """(the lowered edge kernel, its feature columns of side 1, of side 2)
+    where :func:`mlgk_setup` builds T in one pass of
+    :func:`~graphdot_tpu_torch.ops.setup_edge.setup_edge`; else None, and
+    T's build keeps the plain operations. The pass runs when all of these
+    hold of what the call is given:
+
+    - mode ``'cuda'``, with the operands on a CUDA device;
+    - no autograd graph wanted through T (theta does not require grad, or
+      grad is off), and no ``torch.func`` transform around the call (the
+      tangents' ``jacfwd``, :func:`_setup_over_thetas`' ``vmap``): the pass
+      has no derivative;
+    - the edge kernel lowers (:func:`~graphdot_tpu_torch.ops.setup_edge.
+      lower`) over float32 scalar columns of both sides."""
+    if mode != 'cuda' or not _on_card(weights):
+        return None
+    if (torch.is_grad_enabled() and theta.requires_grad) or \
+            torch._C._functorch.peek_interpreter_stack() is not None:
+        return None
+    lowered = lower(kedge, feats1)
+    if lowered is None:
+        return None
+    cols1, cols2 = columns_of(lowered, feats1), columns_of(lowered, feats2)
+    if cols1 is None or cols2 is None:
+        return None
+    return lowered, cols1, cols2
+
+
 def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode, kron=None):
     """Build the product-graph systems of a batch of graph pairs.
 
@@ -358,6 +408,12 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode, kron=None):
     T is 0 at the padded edges), ``W`` [P, n1, n1, n2, n2] ('dense'), or the Kronecker factors
     ``A1s``, ``B2s``, ``V2`` and the grid kernel ``C`` [R, R] ('kron', no T:
     :func:`._kron.kron_factors`).
+
+    T is built by one pass of ``csrc/setup_edge.cu`` where
+    :func:`fused_edge_setup` says so (mode ``'cuda'`` on the card), else by
+    the plain operations; both give the same T, to float32 rounding.
+    While a profiler records, its pairs are counted in ``setup_edge.pairs``
+    and those of the one pass in ``setup_edge.fused``.
     """
     q, tn, te = _split_theta(theta, knode, kedge, n_p_theta)
 
@@ -425,18 +481,15 @@ def mlgk_setup(theta, ops, *, knode, kedge, n_p_theta, mode, kron=None):
         if not raw_eef1:
             raw_eef1 = {'_phantom': ew1}
             raw_eef2 = {'_phantom': ew2}
-        eef1 = _expand_dict(raw_eef1, (2,))  # [P,M1,1(,L)]
-        eef2 = _expand_dict(raw_eef2, (1,))  # [P,1,M2(,L)]
-        ke = _apply_on_features(kedge, te, eef1, eef2)
-        # zero at the padded edges (weight 0) by a mask, not by the weight
-        # alone: at a tiny length scale the edge kernel's derivative
-        # overflows against a padded edge's features where it does not
-        # between real edges, and 0 * inf would make T_d NaN there (the
-        # JAX package multiplies by the weights, and its gradients are NaN
-        # at such theta)
-        w1, w2 = ew1[:, :, None], ew2[:, None, :]
-        T = torch.where((w1 != 0) & (w2 != 0), ke * w1 * w2, 0.0)
-        system['T'] = T.expand(P, ew1.shape[1], ew2.shape[1]).contiguous()
+        count('setup_edge.pairs', P)
+        fused = fused_edge_setup(mode, theta, kedge, raw_eef1, raw_eef2, ew1)
+        if fused is not None:
+            # one pass of csrc/setup_edge.cu, T's contract unchanged
+            system['T'] = setup_edge(fused[0], te, *fused[1:], ew1, ew2)
+            count('setup_edge.fused', P)
+        else:
+            system['T'] = plain_edge_coupling(kedge, te, raw_eef1, raw_eef2,
+                                              ew1, ew2)
     for f in ('esrc_1', 'edst_1', 'esrc_2', 'edst_2', 'edge_lists_1',
               'edge_lists_2'):
         system[f] = ops[f]
@@ -727,7 +780,9 @@ def mlgk_solve(theta, ops, *, knode, kedge, n_p_theta, lmin, mode,
     ``mlgk_tangents_rhs``, the right-hand sides) and
     ``mlgk_tangent_solve``; the CG steps of the value and tangent systems
     go to the counters ``cg_steps.value``, ``cg_systems.value``,
-    ``cg_steps.tangent`` and ``cg_systems.tangent``.
+    ``cg_steps.tangent`` and ``cg_systems.tangent``, and the pairs whose T
+    was built to ``setup_edge.pairs`` and ``setup_edge.fused``
+    (:func:`mlgk_setup`).
 
     ``return_resnorm`` adds each pair's relative residual ``||b - A x|| /
     ||b||`` of the value solve, by one plain matvec on x (converged float32

@@ -12,6 +12,7 @@ Feature pytrees at apply-time:
 - multi-feature (Composite) input -> dict of column name -> feature
 """
 from abc import ABC, abstractmethod
+from collections.abc import Mapping
 
 import operator
 from itertools import starmap
@@ -27,6 +28,16 @@ def _safe_div(num, den):
     """num / den where den > 0, else 0 — avoids NaNs from padded entries."""
     ok = den > 0
     return torch.where(ok, num / torch.where(ok, den, 1.0), 0.0)
+
+
+def _column(X):
+    """The C expression of the one feature column an elementary kernel
+    reads: ``X`` itself, or the value of a one-column mapping (as
+    ``_solver._apply_on_features`` feeds such a kernel); None for several
+    columns."""
+    if isinstance(X, Mapping):
+        return X[next(iter(X))] if len(X) == 1 else None
+    return X
 
 
 class MicroKernel(ABC):
@@ -75,6 +86,15 @@ class MicroKernel(ABC):
         -------
         torch.Tensor with the broadcast shape of the inputs.
         """
+
+    def c_expr(self, theta, X, Y):
+        """The kernel as a float32 CUDA C expression, the counterpart of
+        :meth:`apply` for ``csrc/setup_edge.cu``: ``theta`` holds the C
+        expressions of its ``n_theta`` hyperparameters, X and Y those of
+        the features (a string for a scalar column, a mapping of them for
+        several columns). None where the kernel has no such form, as on
+        variable-length features; this default."""
+        return None
 
     @property
     def flat_theta(self):
@@ -149,6 +169,8 @@ class MicroKernelExpr(MicroKernel):
     opstr = None
     #: the scalar/tensor binary operation
     _op = None
+    #: its C form: a format of the two operands' expressions
+    _c_op = None
 
     @staticmethod
     @abstractmethod
@@ -180,6 +202,11 @@ class MicroKernelExpr(MicroKernel):
     def apply(self, theta, X, Y):
         t1, t2 = self._split(theta)
         return self._op(self.k1.apply(t1, X, Y), self.k2.apply(t2, X, Y))
+
+    def c_expr(self, theta, X, Y):
+        t1, t2 = self._split(theta)
+        a, b = self.k1.c_expr(t1, X, Y), self.k2.c_expr(t2, X, Y)
+        return None if a is None or b is None else self._c_op.format(a, b)
 
     @property
     def n_theta(self):
@@ -234,6 +261,7 @@ class MicroKernelExpr(MicroKernel):
 class Add(MicroKernelExpr):
     opstr = '+'
     _op = staticmethod(operator.add)
+    _c_op = '({} + {})'
 
     @staticmethod
     def _partials(f1, f2):
@@ -243,6 +271,7 @@ class Add(MicroKernelExpr):
 class Multiply(MicroKernelExpr):
     opstr = '*'
     _op = staticmethod(operator.mul)
+    _c_op = '({} * {})'
 
     @staticmethod
     def _partials(f1, f2):
@@ -252,6 +281,7 @@ class Multiply(MicroKernelExpr):
 class Exponentiation(MicroKernelExpr):
     opstr = '**'
     _op = staticmethod(operator.pow)
+    _c_op = 'powf({}, {})'
 
     @staticmethod
     def _partials(f1, f2):
@@ -293,6 +323,9 @@ def Constant(c, c_bounds='fixed'):
                 *[v.shape for v in _leaf_arrays(X, Y)]
             )
             return theta[0].expand(shape)
+
+        def c_expr(self, theta, X, Y):
+            return theta[0]
 
         @property
         def theta(self):
@@ -376,6 +409,16 @@ def Normalize(kernel):
             Fxx = self.kernel.apply(theta, X, X)
             Fyy = self.kernel.apply(theta, Y, Y)
             return _safe_div(Fxy, torch.sqrt(Fxx * Fyy))
+
+        def c_expr(self, theta, X, Y):
+            parts = [self.kernel.c_expr(theta, *xy)
+                     for xy in ((X, Y), (X, X), (Y, Y))]
+            if None in parts:
+                return None
+            return ('[](float xy, float xx, float yy) { '
+                    'const float den = sqrtf(xx * yy); '
+                    'return den > 0.F ? xy / den : 0.F; }'
+                    f'({", ".join(parts)})')
 
         @property
         def theta(self):

@@ -3,17 +3,20 @@
 Counterpart of ``graphdot_tpu/microkernel/_sympy.py``. The expression is
 lambdified twice: once with numpy (host-side scalar ``__call__`` semantics,
 including analytic jacobians) and once with a map of torch functions (the
-tensor ``apply`` used by the solver).
+tensor ``apply`` used by the solver). It is also printed as float32 CUDA C
+(``c_expr``), for the edge coupling's one pass (``csrc/setup_edge.cu``).
 """
 from collections import OrderedDict
 
 import numpy as np
 import sympy as sy
 import torch
+from sympy.codegen.ast import float32, real
+from sympy.printing.c import C99CodePrinter
 from sympy.utilities.lambdify import lambdify
 
 from ..util.pretty_tuple import pretty_tuple
-from ._base import MicroKernel
+from ._base import MicroKernel, _column
 
 #: sympy function name -> torch function; lambdify prints every name in a
 #: dict module as a bare call, so the generated code calls these
@@ -24,6 +27,44 @@ _TORCH_MODULE = [{
     'Abs': torch.abs, 'Pow': torch.pow, 'pi': np.pi,
     'Max': torch.maximum, 'Min': torch.minimum,
 }]
+
+
+class _Printer(C99CodePrinter):
+    """sympy's C99 printer in float32: ``expf``, ``powf``, ``0.5F``; the
+    integer powers that torch computes by products (2, 3, and -2 as a
+    reciprocal) printed as products, and constants as float literals."""
+
+    def __init__(self):
+        super().__init__(settings={'type_aliases': {real: float32}})
+
+    def _print_Pow(self, expr):
+        e = expr.exp
+        if e.is_Integer and int(e) in (2, 3, -2):
+            prod = '*'.join([f'({self._print(expr.base)})'] * abs(int(e)))
+            return f'({prod})' if e > 0 else f'(1.0F/({prod}))'
+        return super()._print_Pow(expr)
+
+    def _print_NumberSymbol(self, expr):
+        return f'{float(torch.tensor(float(expr))):.9g}F'
+
+    _print_Pi = _print_Exp1 = _print_NumberSymbol
+
+
+def _c_function(expr, vars, hypers):
+    """``expr`` as a C lambda of floats ``(u, v, h0, h1, ...)`` (the two
+    features, then the hyperparameters), or None where the printer cannot
+    print it."""
+    u, v, *h = sy.symbols(f'u v h:{len(hypers)}')
+    names = [*vars, *(sy.Symbol(str(s)) for s in hypers)]
+    expr = expr.xreplace(dict(zip(names, [u, v, *h])))
+    if not expr.free_symbols <= {u, v, *h}:
+        return None
+    printer = _Printer()
+    body = printer.doprint(expr)
+    if printer._not_supported:
+        return None
+    params = ', '.join(f'float {s}' for s in (u, v, *h))
+    return f'[]({params}) {{ return {body}; }}'
 
 
 def _from_sympy(name, desc, expr, vars, *hyperparameter_specs,
@@ -167,6 +208,17 @@ def _from_sympy(name, desc, expr, vars, *hyperparameter_specs,
             return self._fun_torch(
                 X, Y, *[theta[i] for i in range(len(self._hyperdefs))]
             )
+
+        def c_expr(self, theta, X, Y):
+            cls = type(self)
+            if not hasattr(cls, '_c_cached'):
+                cls._c_cached = _c_function(
+                    sy.sympify(self._expr), self._vars, list(self._hyperdefs))
+            x, y = _column(X), _column(Y)
+            if cls._c_cached is None or x is None or y is None:
+                return None
+            args = ', '.join([x, y, *theta[:self.n_theta]])
+            return f'{cls._c_cached}({args})'
 
         @property
         def theta(self):

@@ -1,6 +1,8 @@
 """Composite (multi-feature) microkernel; counterpart of
 ``graphdot_tpu/microkernel/composite.py``, whose ``apply`` works on torch
 tensors unchanged."""
+from collections.abc import Mapping
+
 import numpy as np
 
 from ..util.pretty_tuple import pretty_tuple
@@ -79,6 +81,20 @@ def Composite(oper, **kw_kernels):
                 out = piece if out is None else (
                     out + piece if self.opstr == '+' else out * piece)
             return out
+
+        def c_expr(self, theta, X, Y):
+            if not (isinstance(X, Mapping) and isinstance(Y, Mapping)):
+                return None
+            parts, offset = [], 0
+            for key, child in self.kw_kernels.items():
+                t = theta[offset:offset + child.n_theta]
+                offset += child.n_theta
+                piece = (child.c_expr(t, X[key], Y[key])
+                         if key in X and key in Y else None)
+                if piece is None:
+                    return None
+                parts.append(piece)
+            return f'({f" {self.opstr} ".join(parts)})'
 
         def _gather(self, attr):
             return pretty_tuple(self.name, self.kw_kernels.keys())(

@@ -3,7 +3,7 @@ import numpy as np
 import torch
 
 from ..util.pretty_tuple import pretty_tuple
-from ._base import MicroKernel
+from ._base import MicroKernel, _column
 
 
 class _KroneckerDelta(MicroKernel):
@@ -39,6 +39,12 @@ class _KroneckerDelta(MicroKernel):
 
     def apply(self, theta, X, Y):
         return torch.where(X == Y, 1.0, theta[0])
+
+    def c_expr(self, theta, X, Y):
+        x, y = _column(X), _column(Y)
+        if x is None or y is None:
+            return None
+        return f'({x} == {y} ? 1.0F : {theta[0]})'
 
     @property
     def theta(self):

@@ -2,7 +2,7 @@
 ``graphdot_tpu/microkernel/product.py``."""
 import numpy as np
 
-from ._base import MicroKernel
+from ._base import MicroKernel, _column
 
 
 class Product(MicroKernel):
@@ -29,3 +29,7 @@ class Product(MicroKernel):
 
     def apply(self, theta, X, Y):
         return X * Y
+
+    def c_expr(self, theta, X, Y):
+        x, y = _column(X), _column(Y)
+        return None if x is None or y is None else f'({x} * {y})'

@@ -8,7 +8,9 @@ includes (``#include "name.cuh"``, followed into headers too) and of the
 flags, so an edited source or header builds anew and an unchanged one is
 reused. :func:`build` starts
 one ``nvcc`` a source, all at once, for the sources of :data:`KERNELS`. A
-failed build raises.
+source generated at run time from a ``csrc/`` template (:func:`load_text`)
+is written beside its library, both named by the hash of its text and the
+flags. A failed build raises.
 """
 import ctypes
 import hashlib
@@ -86,12 +88,36 @@ def build(*names):
     """Build (where needed) and load ``csrc/<name>.cu`` for every name, one
     ``nvcc`` process a source, all started together. A failed build stops
     the others and raises."""
+    _build_all({name: _target(name) for name in names if name not in _LOADED})
+
+
+def load_text(name, text):
+    """Build (where needed) and load the CUDA source ``text``, generated
+    from the template ``csrc/<name>.cu``; returns the CDLL. The source and
+    the library are named ``<name>-<hash>`` by the hash of the text, the
+    compiler and the flags, so one text builds once a checkout."""
+    nvcc = nvcc_path()
+    digest = hashlib.sha256(
+        '\0'.join((name, text, nvcc) + NVCC_FLAGS).encode()).hexdigest()
+    key = f'{name}-{digest[:16]}'
+    if key not in _LOADED:
+        src = _BUILD_DIR / f'{key}.cu'
+        lib_path = _BUILD_DIR / f'{key}.so'
+        if not lib_path.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = src.with_suffix(f'.{os.getpid()}.tmp')
+            tmp.write_text(text)
+            os.replace(tmp, src)
+        _build_all({key: (src, nvcc, lib_path)})
+    return _LOADED[key][0]
+
+
+def _build_all(targets):
+    """Build (where needed) and load each ``{key: (source, nvcc,
+    library)}``, one ``nvcc`` process a source, all started together."""
     started = {}
     try:
-        for name in names:
-            if name in _LOADED or name in started:
-                continue
-            src, nvcc, lib_path = _target(name)
+        for name, (src, nvcc, lib_path) in targets.items():
             if lib_path.exists():
                 started[name] = (None, lib_path, None, 0.0)
                 continue
@@ -109,7 +135,7 @@ def build(*names):
                 if proc.returncode != 0:
                     tmp.unlink(missing_ok=True)
                     raise RuntimeError(
-                        f'nvcc failed to build {_CSRC / name}.cu (exit '
+                        f'nvcc failed to build {targets[name][0]} (exit '
                         f'{proc.returncode}):\n{log}')
                 os.replace(tmp, lib_path)   # atomic: concurrent builds agree
             _LOADED[name] = (ctypes.CDLL(str(lib_path)), info)
